@@ -20,7 +20,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      inputs, with times, bounds and the library yardstick;
   7. output checks: shapes, finite sorted scores, first-stage recall
      against exact scores, rerank scores against a dense re-embed, and a
-     tiny f32 retriever on the card against the same on the CPU.
+     tiny f32 retriever on the card against the same on the CPU;
+  8. once the indexes of phases 4-5 are freed, an index larger than the
+     card: ``--wiki-rows`` (wiki21m's 21,015,324) bag-of-token rows made
+     on the card from the seed, each row's text made on demand. ``'auto'``
+     must send it to the block tier with int8 selection (kernel #4);
+     ``retrieve(rerank=True, k=100)`` runs on ``--batches`` batches, then
+     the same rows on the host go through the stream tier. Both first
+     stages are held against exact blockwise scores (kernel #2), and
+     kernels #4 and #3 (bucket 16) against their plain versions on one
+     full 262,144-row block.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -28,7 +37,9 @@ kernel; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -37,9 +48,12 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
+H100_INT8_OPS = 1979e12  # int8, dense
 B = 32  # queries per batch, as the beta-search CLI sends them
 K = 100
 SMALL_ROWS = 1 << 16  # below BoTIndex.bucketed_threshold: exact selection
+WIKI21M_ROWS = 21_015_324  # passages of wiki21m (docs/ARCHITECTURE.md)
+BLOCK_ROWS = 1 << 18  # BoTIndex.stream_block_rows: the tiers' block
 LAYERS = 12
 # the card; a CPU rehearsal of the control flow patches this to "cpu"
 DEVICE = "cuda"
@@ -119,7 +133,56 @@ def make_queries(rng, texts, n: int):
     return out
 
 
-# -- checks ---------------------------------------------------------------------
+def synth_bot_rows(torch, dev, n: int, seed: int, num_words: int,
+                   nnz_pad: int = 128, mean_len: int = 100):
+    """``n`` bag-of-token rows made on the card in chunks of 1M rows:
+    80-120 Zipf(1) draws over the ``num_words`` non-special words (the
+    law of ``make_corpus``), unique ids ascending, padded with the
+    sentinel ``num_words`` to ``nnz_pad`` as ``build_bot_ell`` pads.
+    Returns (cols [n, nnz_pad] int32, nnz [n] int32) on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    p = 1.0 / torch.arange(1, num_words + 1, dtype=torch.float64,
+                           device=dev)
+    cdf = torch.cumsum(p / p.sum(), 0)
+    width = mean_len + 20
+    pos = torch.arange(width, device=dev)
+    cols = torch.empty((n, nnz_pad), dtype=torch.int32, device=dev)
+    nnz = torch.empty(n, dtype=torch.int32, device=dev)
+    for s in range(0, n, 1 << 20):
+        m = min(1 << 20, n - s)
+        u = torch.rand((m, width), generator=gen, device=dev,
+                       dtype=torch.float64)
+        ids = torch.searchsorted(cdf, u).clamp_max(num_words - 1)
+        lens = torch.randint(mean_len - 20, mean_len + 21, (m, 1),
+                             generator=gen, device=dev)
+        ids = torch.where(pos < lens, ids, num_words).sort(dim=1).values
+        dup = torch.zeros_like(ids, dtype=torch.bool)
+        dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+        ids = torch.where(dup, num_words, ids).sort(dim=1).values
+        cols[s:s + m, :width] = ids.to(torch.int32)
+        cols[s:s + m, width:] = num_words
+        nnz[s:s + m] = (ids < num_words).sum(dim=1).to(torch.int32)
+    return cols, nnz
+
+
+class RowTexts:
+    """The passage texts of bag-of-token rows, made on access: item i
+    joins the words of row i's ids (a sequence, as ``index.data``)."""
+
+    def __init__(self, cols, nnz, words):
+        self.cols, self.nnz, self.words = cols, nnz, words
+
+    def __len__(self) -> int:
+        return len(self.nnz)
+
+    def __getitem__(self, i) -> str:
+        i = int(i)
+        return " ".join(self.words[j]
+                        for j in self.cols[i, : self.nnz[i]].tolist())
+
+
+# -- checks -------------------------------------------------------------------
 def same_topk(ids_a, s_a, ids_b, s_b, rtol: float) -> bool:
     """Two (ids, scores) top-k lists agree: scores within ``rtol`` and ids
     equal wherever the score is not tied with a neighbour."""
@@ -160,15 +223,27 @@ def kernel_checks_small(torch, bp, dev) -> None:
     k_k = bp.bucket_keys(words, qT, n)
     require(torch.equal(k_k, bp.bucket_keys_plain(words, qT, n)),
             "bucketed kernel != plain (dyadic)")
+    require(torch.equal(bp.bucket_keys(words, qT, n, 16),
+                        bp.bucket_keys_plain(words, qT, n, 16)),
+            "bucketed kernel (bucket 16) != plain (dyadic)")
     qr = torch.rand((words.shape[1] * 32, b), device=dev)
     qr[v:] = 0
     qT = qr.to(torch.bfloat16)
     s_k, s_p = bp.score_bits(words, qT), bp.score_bits_plain(words, qT)
     require(torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-5),
             "scores kernel != plain (random)")
+    q8T = bp.prepare_queries_int8(
+        torch.from_numpy(np.abs(rng.normal(size=(b, v)))
+                         .astype(np.float32)).to(dev), words.shape[1] * 32)
+    for bucket in (8, 16):
+        require(torch.equal(bp.int8_bucket_keys(words, q8T, n, bucket),
+                            bp.int8_bucket_keys_plain(words, q8T, n,
+                                                      bucket)),
+                f"int8 bucketed kernel (bucket {bucket}) != plain")
     torch.cuda.synchronize()
     log("kernels at ragged shape (n=2500, V=5000, B=7): pack, scores, "
-        "bucketed agree with plain")
+        "bucketed (buckets 8, 16), int8 bucketed (buckets 8, 16) agree "
+        "with plain")
 
 
 def main() -> int:
@@ -176,6 +251,7 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--wiki-rows", type=int, default=WIKI21M_ROWS)
     args = ap.parse_args()
 
     import torch
@@ -211,10 +287,10 @@ def main() -> int:
     log(f"phase 2: built {len(cuda_build.SOURCES)} kernel libraries in "
         f"{build_s:.2f} s (parallel nvcc, sm_90a)")
 
-    # -- phase 3: ragged small shapes ------------------------------------------
+    # -- phase 3: ragged small shapes -----------------------------------------
     kernel_checks_small(torch, bp, dev)
 
-    # -- set-up: vocabulary, tokenizer, corpus, model ---------------------------
+    # -- set-up: vocabulary, tokenizer, corpus, model -------------------------
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     vocab = make_vocab(rng)
@@ -270,28 +346,28 @@ def main() -> int:
             f"{args.batches} batches; launches {launches}")
         return index, results, launches
 
-    # -- phase 4: main path at full size ------------------------------------------
+    # -- phase 4: main path at full size --------------------------------------
     if args.rows < 1 << 20:
         log(f"phase 4: rows cut to {args.rows} (from 1048576)")
     idx_big, res_big, launch_big = drive("4 (main path)", texts)
     require(launch_big["pack"] >= 1 and launch_big["bucketed"] >= args.batches,
             f"main path skipped kernels: {launch_big}")
-    # -- phase 5: small index, exact scorer ---------------------------------------
+    # -- phase 5: small index, exact scorer -----------------------------------
     idx_small, res_small, launch_small = drive(
         "5 (small index)", texts[:SMALL_ROWS])
     require(launch_small["pack"] >= 1
             and launch_small["scores"] >= args.batches,
             f"small-index path skipped kernels: {launch_small}")
 
-    # -- phase 6: kernels on the main path's inputs ---------------------------------
+    # -- phase 6: kernels on the main path's inputs ---------------------------
     q_emb = retriever.process_query(queries[:B])
     q = torch.from_numpy(q_emb).to(dev)
     kernels = []
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-              flops, library_ms):
+              flops, library_ms, peak=H100_F32_FLOPS):
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_F32_FLOPS * 1e3
+        t_ops = flops / peak * 1e3
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vsearch_tpu_torch/ops/csrc/{source}",
@@ -312,23 +388,23 @@ def main() -> int:
     log("phase 6: kernels vs plain at main-path shapes")
     ell = idx_big.ell
     n, nnz_pad = ell.cols.shape
-    words = idx_big.bitmat.words
+    bits = idx_big.bitmat.words
     w_plain = bp.pack_bits_plain(ell.cols, ell.nnz, ell.num_cols)
     require(torch.equal(bp.pack_bits(ell.cols, ell.nnz, ell.num_cols),
                         w_plain), "pack kernel != plain at main shape")
-    require(torch.equal(words, w_plain), "index words != plain pack")
+    require(torch.equal(bits, w_plain), "index words != plain pack")
     del w_plain
     entry("pack_ell", "pack.cu", 189,
           launch_big["pack"] + launch_small["pack"], 0,
           time_ms(lambda: bp.pack_bits(ell.cols, ell.nnz, ell.num_cols), 5),
           time_ms(lambda: bp.pack_bits_plain(ell.cols, ell.nnz,
                                              ell.num_cols), 2),
-          n * nnz_pad * 4 + n * 4 + words.numel() * 4, 0, None)
+          n * nnz_pad * 4 + n * 4 + bits.numel() * 4, 0, None)
 
     nbits = valid_bits(ell)
     qT = bp.prepare_queries(q, idx_big.bitmat)
-    keys_k = bp.bucket_keys(words, qT, n)
-    keys_p = bp.bucket_keys_plain(words, qT, n)
+    keys_k = bp.bucket_keys(bits, qT, n)
+    keys_p = bp.bucket_keys_plain(bits, qT, n)
     dec = lambda kk: (kk & ~1023).view(torch.float32).clamp_min(0)
     err_keys = float((dec(keys_k) - dec(keys_p)).abs().max())
     scale = float(dec(keys_p).max())
@@ -338,14 +414,14 @@ def main() -> int:
                           .astype(np.float32)).to(dev)
     dy[ell.num_cols:] = 0
     dyT = dy.to(torch.bfloat16)
-    require(torch.equal(bp.bucket_keys(words, dyT, n),
-                        bp.bucket_keys_plain(words, dyT, n)),
+    require(torch.equal(bp.bucket_keys(bits, dyT, n),
+                        bp.bucket_keys_plain(bits, dyT, n)),
             "bucketed keys not bit-identical under dyadic queries")
     entry("bucketed_keys", "bucketed.cu", 412,
           launch_big["bucketed"] + launch_small["bucketed"], err_keys,
-          time_ms(lambda: bp.bucket_keys(words, qT, n), 5),
-          time_ms(lambda: bp.bucket_keys_plain(words, qT, n), 1),
-          words.numel() * 4 + qT.numel() * 2 + keys_k.numel() * 4,
+          time_ms(lambda: bp.bucket_keys(bits, qT, n), 5),
+          time_ms(lambda: bp.bucket_keys_plain(bits, qT, n), 1),
+          bits.numel() * 4 + qT.numel() * 2 + keys_k.numel() * 4,
           nbits * B, None)
     del keys_k, keys_p
 
@@ -374,7 +450,7 @@ def main() -> int:
           words_s.numel() * 4 + qT_s.numel() * 2 + s_k.numel() * 4,
           valid_bits(ell_s) * B, lib_ms)
 
-    # -- phase 7: outputs --------------------------------------------------------
+    # -- phase 7: outputs -----------------------------------------------------
     for res in res_big:
         require(res.ids.shape == (B, K) and res.scores.shape == (B, K),
                 f"result shape {res.ids.shape}")
@@ -385,7 +461,7 @@ def main() -> int:
                 "bad ids")
     # first-stage recall of the bucketed selection against exact scores
     first = idx_big.search(q_emb, k=K)
-    exact = bp.score_bits_plain(words, qT)[:n].T.cpu().numpy()
+    exact = bp.score_bits_plain(bits, qT)[:n].T.cpu().numpy()
     recall = []
     for i in range(B):
         kth = np.sort(exact[i])[::-1][K - 1]
@@ -406,7 +482,20 @@ def main() -> int:
     check_tiny_cpu_vs_gpu(torch, tok, texts, queries, Retriever,
                           RetrieverConfig, dev)
 
-    del idx_big, idx_small
+    # -- phase 8: an index larger than the card -------------------------------
+    del idx_big, idx_small, ell, bits, ell_s, words_s, qT, qT_s, s_k, s_p
+    del dy, dyT, texts
+    retriever.index = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    large = phase_large(torch, bp, dev, args, retriever, tok, words, rng)
+    lb, ls = large["launch_block"], large["launch_stream"]
+    for e in kernels:  # the launches of phase 8's two paths
+        e["launches"] += {"pack_ell": lb["pack"] + ls["pack"],
+                          "bucketed_keys": ls["bucketed"]}.get(e["name"], 0)
+    entry("int8_bucketed_keys", "int8_bucketed.cu", 512,
+          lb["int8_bucketed"], 0, large["ms"], large["plain_ms"],
+          large["nbytes"], large["ops"], None, peak=H100_INT8_OPS)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -414,6 +503,247 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def host_scores(q_rows, ids, cols, nnz, v: int):
+    """Each query's weights summed over its rows' ids on the host (f32
+    weights, f64 sum, f32 result): q_rows [B, V], ids [B, k] -> [B, k]."""
+    rows = np.minimum(cols[ids], v)  # [B, k, nnz_pad]; sentinels -> v
+    valid = np.arange(cols.shape[1]) < nnz[ids][..., None]
+    qpad = np.concatenate([q_rows, np.zeros((len(q_rows), 1), np.float32)],
+                          axis=1)
+    g = qpad[np.arange(len(q_rows))[:, None, None], rows]
+    return np.where(valid, g, 0.0).sum(axis=-1, dtype=np.float64) \
+        .astype(np.float32)
+
+
+def recall_by_threshold(torch, q_emb, ids, ref_scores, cols, nnz, v):
+    """First-stage recall against exact top-k scores ``ref_scores`` (the
+    queries rounded to bf16, as the kernels take them): the share of
+    returned rows that score at least the exact k-th, as phase 7."""
+    qb = torch.from_numpy(q_emb).to(torch.bfloat16).float().numpy()
+    got = host_scores(qb, ids, cols, nnz, v)
+    kth = ref_scores[:, -1:]
+    return float(np.mean(got >= kth - 1e-3 * np.maximum(kth, 1.0)))
+
+
+def profile_first_stage(torch, idx, q_emb) -> None:
+    """Where one block-tier first stage spends the card's time:
+    ``torch.profiler`` device time by kernel, and the share of the host
+    clock in which the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        idx.search(q_emb, k=K)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device's own events (kernels, copies); a CPU op's device time
+    # counts its kernels again
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    if not rows:
+        log("  profile: the profiler saw no device time (not measured)")
+        return
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    log(f"  profile of one block-tier first stage: wall {wall * 1e3:.1f} "
+        f"ms, device busy {busy * 1e3:.1f} ms ({busy / wall:.1%}); by "
+        "kernel: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
+            f"x{e.count}" for e in rows[:6]))
+
+
+def phase_large(torch, bp, dev, args, retriever, tok, words, rng) -> dict:
+    """Phase 8: ``--wiki-rows`` rows through the block tier (Retriever,
+    auto mode) and the stream tier, held against exact blockwise scores;
+    kernels #4 and #3 (bucket 16) on one full block. Returns the launch
+    counts of both paths and kernel #4's measurements."""
+    from vsearch_tpu_torch.index import BoTIndex
+    from vsearch_tpu_torch.index.bot_build import build_bot_ell
+    from vsearch_tpu_torch.ops.ell import ELLMatrix, widen_cols
+
+    n, v = args.wiki_rows, len(words)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    cols_d, nnz_d = synth_bot_rows(torch, dev, n, args.seed, v)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cols_h, nnz_h = cols_d.cpu().numpy(), nnz_d.cpu().numpy()
+    texts = RowTexts(cols_h, nnz_h, words)
+    log(f"phase 8 (index larger than the card): {n} rows made on the card "
+        f"in {t1 - t0:.2f} s (nnz mean {nnz_h.mean():.1f}, max "
+        f"{nnz_h.max()}), copied to the host in "
+        f"{time.perf_counter() - t1:.2f} s")
+    sample = rng.choice(n, size=min(1000, n), replace=False)
+    built = build_bot_ell(tok, [texts[i] for i in sample], max_len=128,
+                          shift=999, device="cpu")
+    require(built.num_cols == v, f"tokenizer columns {built.num_cols}")
+    b_cols, b_nnz = built.cols.numpy(), built.nnz.numpy()
+    for r, i in enumerate(sample):
+        require(b_nnz[r] == nnz_h[i] and np.array_equal(
+            np.sort(b_cols[r, :b_nnz[r]]), cols_h[i, :nnz_h[i]]),
+            f"row {i}: the tokenizer gives back another set of ids")
+    log(f"  build_bot_ell (C++ tokenizer) gives {len(sample)} random rows "
+        "back as sets")
+
+    # -- the block tier, chosen by 'auto', through the Retriever --------------
+    idx = BoTIndex(device=dev)
+    idx.set_ell(ELLMatrix(cols=cols_d, nnz=nnz_d, vals=None, num_cols=v,
+                          sentinel_padded=True))
+    idx.data = texts
+    del cols_d, nnz_d
+    tier, sel = idx._oversize_tier(), idx._block_selection()
+    log(f"  auto: budget {idx._budget()} B (3/4 of the card), packed "
+        f"{idx._packed_bytes()} B, compact ELL {idx._ell_device_bytes()} B "
+        f"-> tier {tier}, selection {sel}")
+    require(tier == "block" and sel == "bucketed_int8",
+            f"'auto' chose tier {tier} with {sel}")
+    t0 = time.perf_counter()
+    cols_b, nnz_b = idx._get_block_ell()
+    torch.cuda.synchronize()
+    log(f"  compact ELL on the card: {tuple(cols_b.shape)} {cols_b.dtype} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    n_blocks = -(-n // idx.stream_block_rows)
+    qtexts = make_queries(rng, texts, B * args.batches)
+    torch.cuda.synchronize()
+    bp.reset_launch_counts()
+    results, stages = [], []
+    for i in range(args.batches):
+        results.append(retriever.retrieve(qtexts[i * B:(i + 1) * B], k=K,
+                                          rerank=True, index=idx))
+        stages.append(dict(retriever.last_timings))
+    launch_block = dict(bp.LAUNCHES)
+    for i, st in enumerate(stages):
+        log(f"  batch {i}: " + ", ".join(
+            f"{k} {t * 1e3:.1f} ms" for k, t in st.items()))
+    total = sum(sum(st.values()) for st in stages)
+    log(f"  block tier: {B * args.batches / total:.2f} queries/s over "
+        f"{args.batches} batches of {n_blocks} blocks; launches "
+        f"{launch_block}")
+    need = n_blocks * args.batches
+    require(launch_block["int8_bucketed"] >= need
+            and launch_block["pack"] >= need,
+            f"block tier skipped kernels: {launch_block}, need {need}")
+
+    # -- first stages against exact blockwise scores (kernel #2) --------------
+    q_embs = [retriever.process_query(qtexts[i * B:(i + 1) * B])
+              for i in range(min(2, args.batches))]
+    refs, firsts = [], []
+    for i, qe in enumerate(q_embs):
+        q = torch.from_numpy(qe).to(dev)
+        t0 = time.perf_counter()
+        r_ids, r_s = bp.bitpack_blockwise_topk(
+            q, cols_b, nnz_b, v, K, block_rows=idx.stream_block_rows,
+            selection="exact")
+        refs.append(r_s.cpu().numpy())
+        t1 = time.perf_counter()
+        firsts.append(idx.search(qe, k=K))
+        t2 = time.perf_counter()
+        rec = recall_by_threshold(torch, qe, firsts[-1].ids, refs[-1],
+                                  cols_h, nnz_h, v)
+        log(f"  batch {i}: block-tier first stage {(t2 - t1) * 1e3:.1f} ms, "
+            f"exact blockwise {(t1 - t0) * 1e3:.1f} ms; recall vs exact "
+            f"{rec:.4f}")
+        require(rec >= 0.99, f"block tier recall {rec}")
+    profile_first_stage(torch, idx, q_embs[0])
+    first = firsts[0]
+    pairs = [(qi, j) for qi in range(5) for j in (0,)]
+    for qi, j in pairs:
+        want = host_scores(q_embs[0][qi:qi + 1], first.ids[qi:qi + 1, j:j + 1],
+                           cols_h, nnz_h, v)[0, 0]
+        require(np.allclose(first.scores[qi, j], want, rtol=1e-6, atol=0),
+                f"first-stage score {first.scores[qi, j]} != host {want}")
+    log(f"  first-stage scores of {len(pairs)} (query, id) pairs equal host "
+        "f32 sums (rtol 1e-6)")
+    for res in results:
+        require(res.ids.shape == (B, K) and res.scores.shape == (B, K),
+                f"result shape {res.ids.shape}")
+        require(np.isfinite(res.scores).all(), "non-finite scores")
+        require((np.diff(res.scores, axis=1) <= 1e-6).all(),
+                "rerank scores not sorted")
+        require(res.ids.min() >= 0 and res.ids.max() < n, "bad ids")
+    top = results[0].ids[0, :5]
+    dense_p = retriever.encoder_p.embed([texts[int(i)] for i in top],
+                                        batch_size=B)
+    expect = dense_p @ q_embs[0][0]
+    got = results[0].scores[0, :5]
+    log(f"  rerank scores {got.tolist()} vs dense re-embed "
+        f"{expect.tolist()}")
+    require(np.allclose(got, expect, rtol=2e-2,
+                        atol=1e-2 * abs(expect).max()),
+            "rerank scores disagree with a dense re-embed")
+
+    # -- kernels #4 and #3 (bucket 16) on one full block ----------------------
+    rows = min(BLOCK_ROWS, n)
+    blk = bp.pack_bits(widen_cols(cols_b[:rows]), nnz_b[:rows].contiguous(),
+                       v)
+    vp = blk.shape[1] * 32
+    q8T = bp.prepare_queries_int8(torch.from_numpy(q_embs[0]).to(dev), vp)
+    keys_k = bp.int8_bucket_keys(blk, q8T, rows)
+    require(torch.equal(keys_k, bp.int8_bucket_keys_plain(blk, q8T, rows)),
+            "int8 bucketed kernel != plain at the block shape")
+    out = dict(
+        ms=time_ms(lambda: bp.int8_bucket_keys(blk, q8T, rows), 20),
+        plain_ms=time_ms(lambda: bp.int8_bucket_keys_plain(blk, q8T, rows),
+                         1),
+        nbytes=blk.numel() * 4 + q8T.numel() + keys_k.numel() * 4,
+        ops=int(nnz_b[:rows].sum()) * B)
+    dyT = torch.from_numpy((rng.integers(0, 129, size=(vp, B)) / 16.0)
+                           .astype(np.float32)).to(dev)
+    dyT[v:] = 0
+    dyT = dyT.to(torch.bfloat16)
+    k16 = bp.bucket_keys(blk, dyT, rows, 16)
+    require(torch.equal(k16, bp.bucket_keys_plain(blk, dyT, rows, 16)),
+            "bucketed kernel (bucket 16) != plain at the block shape")
+    ms16 = time_ms(lambda: bp.bucket_keys(blk, dyT, rows, 16), 20)
+    plain16 = time_ms(lambda: bp.bucket_keys_plain(blk, dyT, rows, 16), 1)
+    bound16 = (blk.numel() * 4 + dyT.numel() * 2 + k16.numel() * 4) \
+        / H100_BYTES_PER_S * 1e3
+    log(f"  kernel #4 on one {rows}-row block, B={B}: bit-identical to "
+        f"plain; kernel #3 at bucket 16, same block, dyadic weights: "
+        f"bit-identical, {ms16:.3f} ms (plain {plain16:.3f} ms, bound "
+        f"{bound16:.3f} ms)")
+    del blk, q8T, keys_k, dyT, k16
+
+    # -- the stream tier over the same rows on the host -----------------------
+    sidx = BoTIndex(search_mode="stream", device=dev)
+    sidx.set_ell(ELLMatrix.from_arrays(cols_h, nnz_h, None, v, True, "cpu"))
+    sidx.data = texts
+    t0 = time.perf_counter()
+    streamer = sidx._get_streamer()
+    log(f"  stream tier: host ELL trimmed to {streamer.cols.shape} "
+        f"{streamer.cols.dtype} in {time.perf_counter() - t0:.2f} s, "
+        f"selection {streamer.selection}")
+    torch.cuda.synchronize()
+    bp.reset_launch_counts()
+    for i, qe in enumerate(q_embs):
+        t0 = time.perf_counter()
+        res = sidx.search(qe, k=K)
+        secs = time.perf_counter() - t0
+        rec = recall_by_threshold(torch, qe, res.ids, refs[i], cols_h,
+                                  nnz_h, v)
+        log(f"  batch {i}: stream sweep {secs * 1e3:.1f} ms, "
+            f"{streamer.bytes_per_sweep / secs / 1e9:.2f} GB/s host->device"
+            f"; recall vs exact {rec:.4f}")
+        require(rec >= 0.99, f"stream tier recall {rec}")
+    launch_stream = dict(bp.LAUNCHES)
+    log(f"  stream tier launches {launch_stream}")
+    need = n_blocks * len(q_embs)
+    require(launch_stream["pack"] >= need
+            and launch_stream["bucketed"] >= need,
+            f"stream tier skipped kernels: {launch_stream}, need {need}")
+    log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s; device "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host "
+        "peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} "
+        "GiB")
+    out.update(launch_block=launch_block, launch_stream=launch_stream)
+    return out
 
 
 def check_tiny_cpu_vs_gpu(torch, tok, texts, queries, Retriever,

@@ -1,4 +1,4 @@
-"""CUDA kernels #1-#3 of the port against their plain PyTorch versions on
+"""CUDA kernels #1-#4 of the port against their plain PyTorch versions on
 the card. They need an NVIDIA GPU with ``nvcc`` (Hopper, sm_90a) and skip
 elsewhere; ``python3 chip_smoke.py`` runs the same checks at the main
 path's shapes."""
@@ -62,3 +62,28 @@ def test_scores_and_keys(case, b):
     torch.testing.assert_close(bp.score_bits(words, qT),
                                bp.score_bits_plain(words, qT),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [1, 7, 32, 45])
+def test_int8_keys_and_bucket16(case, b):
+    """Kernel #4 is bit-identical with any weights (integer sums); kernel
+    #3 at the block tier's bucket 16 under dyadic weights."""
+    cols, nnz, v, rng = case
+    n = cols.shape[0]
+    words = bp.pack_bits(cols, nnz, v)
+    vp = words.shape[1] * 32
+    q = torch.from_numpy(np.abs(rng.normal(size=(b, v))).astype(np.float32))
+    q8T = bp.prepare_queries_int8(q.to(words.device), vp)
+    before = bp.LAUNCHES["int8_bucketed"]
+    got = bp.int8_bucket_keys(words, q8T, n, 16)
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES["int8_bucketed"] == before + 1
+    assert torch.equal(got, bp.int8_bucket_keys_plain(words, q8T, n, 16))
+    assert torch.equal(bp.int8_bucket_keys(words, q8T, n, 8),
+                       bp.int8_bucket_keys_plain(words, q8T, n, 8))
+    dy = torch.from_numpy((rng.integers(0, 129, size=(vp, b)) / 16.0)
+                          .astype(np.float32)).to(words.device)
+    dy[v:] = 0
+    qT = dy.to(torch.bfloat16)
+    assert torch.equal(bp.bucket_keys(words, qT, n, 16),
+                       bp.bucket_keys_plain(words, qT, n, 16))

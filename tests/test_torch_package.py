@@ -1,5 +1,6 @@
 """Rules of the PyTorch port: it imports neither JAX nor the JAX package,
 and its entry points refuse to fall back to the CPU unasked."""
+import ast
 import os
 import re
 import subprocess
@@ -49,8 +50,11 @@ def test_entry_points_raise_without_cuda():
     raises instead of carrying on on the host."""
     import torch
 
+    import numpy as np
+
     from tests.helpers import make_tokenizer, tiny_bert_config
     from vsearch_tpu_torch.index import BoTIndex
+    from vsearch_tpu_torch.index.streamed import StreamedBitpackSearcher
     from vsearch_tpu_torch.retriever import Retriever, RetrieverConfig
 
     if torch.cuda.is_available():
@@ -65,3 +69,34 @@ def test_entry_points_raise_without_cuda():
                                   shared_encoder=True), tokenizer=tok)
     with pytest.raises(RuntimeError, match="CUDA"):
         BoTIndex()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BoTIndex(search_mode="block")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamedBitpackSearcher(np.zeros((4, 8), np.int32),
+                                np.ones(4, np.int32), 300)
+
+
+def test_every_kernel_has_a_counter_and_a_plain_twin():
+    """Each source in ``cuda_build.SOURCES`` is launched by exactly one
+    wrapper in ``ops/bitpack.py`` (``_launch("name", ...)``), has a
+    counter in ``LAUNCHES``, and its wrapper ``f`` runs ``f_plain``, a
+    function of the same module: a kernel cannot land without its
+    twin."""
+    from vsearch_tpu_torch.ops import bitpack, cuda_build
+
+    with open(bitpack.__file__) as f:
+        tree = ast.parse(f.read())
+    launched = {}
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        calls = [c for c in ast.walk(fn) if isinstance(c, ast.Call)
+                 and isinstance(c.func, ast.Name)]
+        for c in calls:
+            if c.func.id == "_launch":
+                launched[c.args[0].value] = fn.name
+                assert f"{fn.name}_plain" in {d.func.id for d in calls}, \
+                    fn.name
+                assert callable(getattr(bitpack, f"{fn.name}_plain"))
+    assert set(launched) == set(cuda_build.SOURCES) == \
+        set(bitpack.LAUNCHES), launched

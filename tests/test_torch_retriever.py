@@ -86,6 +86,27 @@ def test_beta_search_matches_jax(pair, big_corpus, selection):
     assert set(t.last_timings) == {"query_embed", "first_stage", "rerank"}
 
 
+@pytest.mark.parametrize("selection", ["exact", "bucketed"])
+def test_beta_search_block_tier_matches_jax(pair, big_corpus, selection):
+    """The slice as a whole over an index in the block tier (two 1,024-row
+    blocks): the first stage is the blockwise sweep, with int8 selection
+    and an exact rerank under 'bucketed'."""
+    j, t = pair
+    for r in pair:
+        r.build_index(big_corpus, batch_size=1024,
+                      index_type="bag_of_token")
+        r.index.search_mode = "block"
+        r.index.stream_block_rows = 1024
+        r.index.selection = selection
+    assert t.index._block_selection() == (
+        "bucketed_int8" if selection == "bucketed" else "exact")
+    for rerank in (False, True):
+        a = j.retrieve(QUERIES, k=6, rerank=rerank)
+        b = t.retrieve(QUERIES, k=6, rerank=rerank)
+        np.testing.assert_array_equal(b.ids, a.ids)
+        np.testing.assert_allclose(b.scores, a.scores, **TOL)
+
+
 @pytest.mark.parametrize("index_type", ["dense", "sparse", "bag_of_token"])
 def test_alpha_search_matches_jax(pair, index_type):
     j, t = pair

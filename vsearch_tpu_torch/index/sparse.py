@@ -4,16 +4,18 @@
 Scoring paths: exact chunked gather for real-valued sparse indexes, and
 for binary bag-of-token indexes the bit-packed CUDA kernels at every
 size when the index lives on the card (``ops.bitpack``; fused bucketed
-selection above 131,072 rows). The JAX package's other routes — the
-binary-support proxy for large real-valued indexes and the block /
-stream tiers for packed matrices over the device budget — are not ported
-yet. On-disk formats are the JAX package's: scipy-compatible f16 CSR
+selection above 131,072 rows). A bag-of-token index whose packed bits
+exceed the device budget goes to the block tier (compact ELL on the
+card, repacked block by block) or, when even that ELL would not fit, to
+the stream tier (ELL on the host, streamed through the card). The
+binary-support proxy for large real-valued indexes is not ported yet.
+On-disk formats are the JAX package's: scipy-compatible f16 CSR
 ``.npz`` and the native ``.ell.npz``, readable and writable both ways.
 """
 from __future__ import annotations
 
 import logging
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,6 +39,11 @@ class SparseIndex(DenseIndex):
                  shift: int = 0,
                  val_dtype=torch.bfloat16, search_mode: str = "auto",
                  selection: Optional[str] = None, device="cuda"):
+        if search_mode in ("stream", "block") and not self._binary:
+            # the over-size tiers pack blocks to bits: binary only, a
+            # real-valued index would silently lose its weights
+            raise ValueError(f"search_mode={search_mode!r} supports "
+                             "binary bag-of-token indexes only")
         if search_mode not in self._search_modes:
             raise NotImplementedError(
                 f"search_mode={search_mode!r} is not ported yet "
@@ -49,6 +56,11 @@ class SparseIndex(DenseIndex):
         self.ell: Optional[ELLMatrix] = None
         super().__init__(index_file, data_file, low_memory=low_memory,
                          device=device)
+
+    def _load_device(self) -> torch.device:
+        """Where a freshly loaded ELL lives: the index's device, or the
+        host for BoTIndex's over-size tiers."""
+        return self.device
 
     # -- loading -----------------------------------------------------------
     def init_index(self, index_file: Union[str, Sequence[str]]):
@@ -78,7 +90,7 @@ class SparseIndex(DenseIndex):
             shards = [s[:, self.shift:] for s in shards]
         mat = vstack(shards).tocsr() if len(shards) > 1 else shards[0].tocsr()
         return ELLMatrix.from_scipy_csr(mat, binary=self._binary,
-                                        device=self.device)
+                                        device=self._load_device())
 
     def _load_native(self, files) -> ELLMatrix:
         parts = []
@@ -114,7 +126,7 @@ class SparseIndex(DenseIndex):
                 [np.pad(p[2], ((0, 0), (0, nnz_pad - p[2].shape[1])))
                  for p in parts]).astype(np.float32)).to(self.val_dtype)
         return ELLMatrix.from_arrays(cols, nnz, vals, num_cols, sentinel,
-                                     self.device)
+                                     self._load_device())
 
     def set_ell(self, ell: ELLMatrix):
         self.ell = ell
@@ -199,19 +211,37 @@ class SparseIndex(DenseIndex):
 class BoTIndex(SparseIndex):
     """Bag-of-token binary index: same ELL storage, no values (implicit
     1.0 weights). On the card it scores through the bit-packed CUDA
-    kernels (4 KB a row in device memory, exact scores).
+    kernels (4 KB a row in device memory, exact scores). An index whose
+    packed matrix exceeds the device budget falls to one of two over-size
+    tiers: 'block' keeps the compact ELL on the card (uint16 ids: ~5.4 GB
+    at wiki21m's 21M rows against ~86 GB packed) and repacks row blocks
+    in each search (``ops.bitpack.bitpack_blockwise_topk``, no host
+    traffic a query); 'stream' keeps the ELL on the host and streams it
+    through the card (``index.streamed``) when even the compact ELL would
+    not fit.
 
-    search_mode: 'auto' | 'exact' | 'bitpack'; selection: 'auto' |
-    'exact' | 'bucketed'.
+    search_mode: 'auto' | 'exact' | 'bitpack' | 'block' | 'stream';
+    selection: 'auto' | 'exact' | 'approx' | 'bucketed' |
+    'bucketed_approx' (off the TPU the JAX package runs 'approx' as exact
+    top-k and 'bucketed_approx' as 'bucketed'; so does the port).
     """
 
     index_type = IndexType.BAG_OF_TOKEN
     _binary = True
-    _search_modes = ("auto", "exact", "bitpack")
+    _search_modes = ("auto", "exact", "bitpack", "block", "stream")
+    _selections = ("auto", "exact", "approx", "bucketed", "bucketed_approx")
 
-    # device budget for the packed matrix; above it the JAX package moves
-    # to its block / stream tiers, which the port does not have yet
-    hbm_budget_bytes: Optional[int] = None  # None -> 12 GiB
+    # -- over-size tier knobs ---------------------------------------------
+    # 'auto' leaves the resident bit-packed path when the packed matrix
+    # would not fit this budget; None -> 3/4 of the card's memory, which
+    # leaves room for queries, per-block transients and encoder weights
+    hbm_budget_bytes: Optional[int] = None
+    stream_block_rows = 1 << 18
+    # the block tier selects candidates with kernel #4 (int8 scores) and
+    # restores exact f32 scores and order by an exact rerank of
+    # block_cand_budget survivors (0 -> 2k); False pins kernel #3
+    block_int8 = True
+    block_cand_budget = 0
 
     # 'auto' resolves to the fused bucketed kernel above this row count
     # and to exact top-k below it (with only N/8 buckets, top-100 bucket
@@ -222,13 +252,20 @@ class BoTIndex(SparseIndex):
     exact_threshold = 131_072
 
     def __init__(self, *args, **kwargs):
-        self.bitmat = None
+        self._reset_derived()
         super().__init__(*args, **kwargs)
 
+    def _reset_derived(self):
+        """Drop everything derived from the ELL: a reload that kept the
+        packed bits, the block tier's device ELL or the streamer would
+        answer from the old corpus."""
+        self.bitmat = None
+        self._block_ell = None
+        self._streamer = None
+
     def _resolved_selection(self) -> str:
-        if self.selection not in ("auto", "exact", "bucketed"):
-            raise NotImplementedError(
-                f"selection={self.selection!r} is not ported yet")
+        if self.selection not in self._selections:
+            raise ValueError(f"unknown selection {self.selection!r}")
         if self.selection != "auto":
             return self.selection
         return ("bucketed" if self.ell.shape[0] > self.bucketed_threshold
@@ -246,7 +283,91 @@ class BoTIndex(SparseIndex):
     def _budget(self) -> int:
         if self.hbm_budget_bytes is not None:
             return self.hbm_budget_bytes
-        return 12 << 30
+        return torch.cuda.mem_get_info(self.device)[1] * 3 // 4
+
+    def _load_device(self) -> torch.device:
+        # the over-size modes keep a loaded ELL on the host: the block
+        # tier uploads only its compact copy, the stream tier streams it
+        if self.search_mode in ("stream", "block"):
+            return torch.device("cpu")
+        return self.device
+
+    def _on_card(self) -> bool:
+        return self.ell.cols.is_cuda
+
+    def _ell_device_bytes(self) -> int:
+        """Device footprint of the compact ELL as the block tier stores
+        it (uint16 ids when the vocabulary allows, int32 nnz)."""
+        n, nnz_pad = self.ell.cols.shape
+        itemsize = 2 if self.ell.num_cols <= 65535 else 4
+        return n * (nnz_pad * itemsize + 4)
+
+    def _oversize_tier(self) -> Optional[str]:
+        """None (packed fits: the resident paths apply) | 'block' |
+        'stream'. 'auto' leaves the resident path only for an ELL on the
+        card, preferring the block tier (no host traffic a query) and
+        streaming only when even the compact ELL would crowd out the
+        per-block transients (one packed block ~1 GiB + selection)."""
+        if self.search_mode in ("stream", "block"):
+            return self.search_mode
+        if (self.search_mode == "auto" and self._on_card()
+                and self._packed_bytes() > self._budget()):
+            return ("block" if self._ell_device_bytes()
+                    <= self._budget() - (3 << 30) else "stream")
+        return None
+
+    def _get_block_ell(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One-time copy of the compact ELL onto the device for the block
+        tier: columns past the corpus-wide max nnz (rounded to 8) are
+        trimmed, and ids are stored in 16 bits while V <= 65535 (int16 bit
+        patterns of uint16, see ``ops.ell.widen_cols``; the sentinel
+        survives, and the pack masks anything outside [0, V))."""
+        if self._block_ell is None:
+            cols, nnz = self.ell.cols, self.ell.nnz.to(torch.int32)
+            mx = -(-max(int(nnz.max()), 1) // 8) * 8
+            if mx < cols.shape[1]:
+                cols = cols[:, :mx]
+            dt = torch.int16 if self.ell.num_cols <= 65535 else torch.int32
+            # converted where the ELL lives, then moved: a host ELL crosses
+            # PCIe once, at half the bytes
+            self._block_ell = (cols.to(dt).to(self.device).contiguous(),
+                               nnz.to(self.device).contiguous())
+        return self._block_ell
+
+    def _block_selection(self) -> str:
+        sel = self._resolved_selection()
+        if not sel.startswith("bucketed"):
+            return "exact"
+        if self.block_int8 and self.ell.vals is None:
+            return "bucketed_int8"
+        return "bucketed"
+
+    def _block_search(self, q: torch.Tensor, k: int):
+        from ..ops.bitpack import bitpack_blockwise_topk
+
+        cols, nnz = self._get_block_ell()
+        return bitpack_blockwise_topk(
+            q, cols, nnz, num_cols=self.ell.num_cols, k=k,
+            block_rows=self.stream_block_rows,
+            selection=self._block_selection(),
+            cand_budget=self.block_cand_budget)
+
+    def _get_streamer(self):
+        from .streamed import StreamedBitpackSearcher
+
+        if self._streamer is None:
+            # views of a host ELL, or one copy of a device one (the
+            # compact ELL, never the packed bits)
+            cols = self.ell.cols.cpu().numpy()
+            nnz = self.ell.nnz.cpu().numpy()
+            sel = self._resolved_selection()
+            self._streamer = StreamedBitpackSearcher(
+                cols, nnz, self.ell.num_cols,
+                block_rows=self.stream_block_rows,
+                selection=("bucketed" if sel.startswith("bucketed")
+                           else "exact"),
+                device=self.device)
+        return self._streamer
 
     def _use_bitpack(self) -> bool:
         if self.search_mode == "bitpack":
@@ -255,37 +376,48 @@ class BoTIndex(SparseIndex):
             return False
         # the JAX package takes the kernel at every size on the TPU; the
         # port does so whenever the index lives on the card
-        if self.ell.cols.is_cuda:
+        if self._on_card():
             return True
         return self.ell.shape[0] > self.exact_threshold
 
     def build_bitpack(self):
         from ..ops.bitpack import pack_ell
 
-        if self.ell.cols.is_cuda and self._packed_bytes() > self._budget():
-            raise NotImplementedError(
+        if self._on_card() and self._packed_bytes() > self._budget():
+            raise ValueError(
                 f"packed matrix of {self._packed_bytes()} bytes exceeds the "
-                f"{self._budget()}-byte device budget; the block/stream "
-                "tiers that serve such indexes are not ported yet")
+                f"{self._budget()}-byte device budget; search such an index "
+                "through the block or stream tier (search_mode='auto' picks "
+                "one, or pass search_mode='block' / 'stream')")
         self.bitmat = pack_ell(self.ell)
         return self.bitmat
 
     def set_ell(self, ell: ELLMatrix):
         super().set_ell(ell)
-        self.bitmat = None
+        self._reset_derived()
 
     def search(self, q_embs, k: int) -> SearchResults:
+        if getattr(q_embs, "shape", (1,))[0] == 0:
+            # every path has a well-defined empty answer; the kernels
+            # would launch an empty grid
+            k0 = min(k, self.ell.shape[0])
+            return SearchResults(np.zeros((0, k0), np.int64),
+                                 np.zeros((0, k0), np.float32))
+        tier = self._oversize_tier()
+        if tier is not None:
+            q = self._query_tensor(q_embs, self.ell.num_cols)
+            k = min(k, self.ell.shape[0])
+            if tier == "block":
+                return _results(*self._block_search(q, k))
+            return SearchResults(*self._get_streamer().search(q, k))
         if not self._use_bitpack():
             return super().search(q_embs, k)
         from ..ops.bitpack import bitpack_bucketed_topk, bitpack_topk_search
 
         q = self._query_tensor(q_embs, self.ell.num_cols)
         k = min(k, self.ell.shape[0])
-        if q.shape[0] == 0:
-            return SearchResults(np.zeros((0, k), np.int64),
-                                 np.zeros((0, k), np.float32))
         if self.bitmat is None:
             self.build_bitpack()
-        if self._resolved_selection() == "bucketed":
+        if self._resolved_selection().startswith("bucketed"):
             return _results(*bitpack_bucketed_topk(q, self.bitmat, k=k))
         return _results(*bitpack_topk_search(q, self.bitmat, k=k))

@@ -3,11 +3,16 @@
 
 Binary passage rows live bit-packed in device memory (4 KB a row at
 V' = 29,523) and are scored by hand-written CUDA kernels
-(``csrc/*.cu``): the pack (#1), the exact scorer (#2) and the fused
-score-and-bucket kernel (#3). Each kernel wrapper below launches its
-kernel on a CUDA tensor and runs its plain PyTorch twin (same signature,
-``*_plain``) on a CPU tensor; there is no other fallback. The twins are
-also what the tests and ``chip_smoke.py`` hold the kernels against.
+(``csrc/*.cu``): the pack (#1), the exact scorer (#2), the fused
+score-and-bucket kernel (#3) and its integer twin over an int8 query
+operand (#4). Each kernel wrapper below launches its kernel on a CUDA
+tensor and runs its plain PyTorch twin (same signature, ``*_plain``) on a
+CPU tensor; there is no other fallback. The twins are also what the tests
+and ``chip_smoke.py`` hold the kernels against.
+
+An index whose packed bits do not fit the device keeps its compact ELL
+there instead and is swept block by block (``bitpack_blockwise_topk``):
+each block is packed, scored and merged into a running top-k.
 
 Layout: vocab id ``v`` -> word ``(v//4096)*128 + v%128``, bit
 ``(v%4096)//128``. ``BitMatrix.words`` is ``[N_pad, VP/32]`` int32
@@ -24,18 +29,23 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .ell import ELLMatrix, widen_cols
 from .search import top_k
+from .two_stage import exact_rerank
 
 TILE_BITS = 4096
 LANES = 128
 PLANES = 32
 ROW_BLOCK = 1024  # rows per padding unit and per bucket-fold block
 BUCKET = 8  # rows folded into one candidate key by kernel #3
+BLOCK_BUCKET = 2 * BUCKET  # the fold of the block tier's kernels
+INT8_KEY_SHIFT = 10  # low bits of an int8 key hold the local row id
 INT32_MIN = -(2 ** 31)
 
 # launches of each CUDA kernel since the last reset: a run can show that
 # its main path went through the kernels
-LAUNCHES: Dict[str, int] = {"pack": 0, "scores": 0, "bucketed": 0}
+LAUNCHES: Dict[str, int] = {"pack": 0, "scores": 0, "bucketed": 0,
+                            "int8_bucketed": 0}
 
 
 def reset_launch_counts() -> None:
@@ -168,6 +178,28 @@ def _check_queries(name: str, words: torch.Tensor, qT: torch.Tensor):
                          f"{words.shape[1] * 32}")
 
 
+def _check_fold(name: str, n_pad: int, bucket: int) -> int:
+    """kb = ROW_BLOCK / bucket key slots a block, as the fold kernels
+    take them."""
+    kb = ROW_BLOCK // bucket
+    if n_pad % ROW_BLOCK or bucket & (bucket - 1) or kb % 8:
+        raise ValueError(f"{name}: padded rows {n_pad} must be a multiple "
+                         f"of {ROW_BLOCK} and bucket {bucket} a power of "
+                         "two <= 128")
+    return kb
+
+
+def _fold_keys(keys: torch.Tensor, num_rows: int, bucket: int
+               ) -> torch.Tensor:
+    """Mask rows >= num_rows to INT32_MIN and max-fold each 1024-row
+    block's keys [N_pad, B] to [N_pad / bucket, B]: local rows l and l'
+    share slot l % (1024 / bucket), the grouping of JAX's halving fold."""
+    n_pad, b = keys.shape
+    keys[num_rows:] = INT32_MIN
+    return keys.view(n_pad // ROW_BLOCK, bucket, ROW_BLOCK // bucket, b) \
+        .amax(dim=1).reshape(n_pad // bucket, b)
+
+
 def score_bits(words: torch.Tensor, qT: torch.Tensor) -> torch.Tensor:
     """Kernel #2 (``csrc/scores.cu``) on CUDA tensors, the plain version
     on CPU tensors. words [N_pad, W] int32, qT [VP, B] bf16 ->
@@ -189,15 +221,11 @@ def bucket_keys_plain(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
                       bucket: int = BUCKET) -> torch.Tensor:
     """Plain PyTorch keys: [N_pad / bucket, B] int32 (see kernel #3)."""
     n_pad = words.shape[0]
-    kb = ROW_BLOCK // bucket
     scores = score_bits_plain(words, qT).clamp_min(0.0)
     local = (torch.arange(n_pad, device=words.device, dtype=torch.int32)
              % ROW_BLOCK)[:, None]
     keys = (scores.view(torch.int32) & ~(ROW_BLOCK - 1)) | local
-    keys[num_rows:] = INT32_MIN
-    b = keys.shape[1]
-    return keys.view(n_pad // ROW_BLOCK, bucket, kb, b).amax(dim=1) \
-        .reshape(n_pad // bucket, b)
+    return _fold_keys(keys, num_rows, bucket)
 
 
 def bucket_keys(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
@@ -209,16 +237,61 @@ def bucket_keys(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
         return bucket_keys_plain(words, qT, num_rows, bucket)
     _check_queries("bucket_keys", words, qT)
     n_pad, w = words.shape
-    kb = ROW_BLOCK // bucket
-    if n_pad % ROW_BLOCK or bucket & (bucket - 1) or kb % 8:
-        raise ValueError(f"bucket_keys: padded rows {n_pad} must be a "
-                         f"multiple of {ROW_BLOCK} and bucket {bucket} a "
-                         "power of two <= 128")
+    kb = _check_fold("bucket_keys", n_pad, bucket)
     b = qT.shape[1]
     qp = _pad_queries(qT)
     keys = torch.empty((n_pad // bucket, b), dtype=torch.int32,
                        device=words.device)
     return _launch("bucketed", keys, words.data_ptr(), qp.data_ptr(),
+                   keys.data_ptr(), n_pad, num_rows, w, b, qp.shape[1], kb)
+
+
+# -- kernel #4: integer score + bucketed keys ---------------------------------
+def prepare_queries_int8(q: torch.Tensor, padded_bits: int) -> torch.Tensor:
+    """q [B, V] f32 nonneg -> [VP, B] int8, each query scaled so that its
+    largest weight is 127 and rounded half to even, as the JAX package
+    quantizes it (f32 ``q * (127 / max(max(q), 1e-6))``). Ranking within
+    a query is scale-invariant, so the scale costs selection quality only
+    through rounding."""
+    q = q.float()
+    mx = q.amax(dim=1, keepdim=True).clamp_min(1e-6)
+    q8T = torch.round(q * (127.0 / mx)).to(torch.int8).T
+    return F.pad(q8T, (0, 0, 0, padded_bits - q8T.shape[0])).contiguous()
+
+
+def int8_bucket_keys_plain(words: torch.Tensor, q8T: torch.Tensor,
+                           num_rows: int, bucket: int = BLOCK_BUCKET
+                           ) -> torch.Tensor:
+    """Plain PyTorch int8 keys: [N_pad / bucket, B] int32 (see kernel #4).
+
+    The row scores are an f32 product of the unpacked 0/1 rows and the
+    int8 weights: every sum is an integer below 2^24, so it is exact
+    (TF32 keeps the 7-bit weights exact too). The splice wraps like JAX's
+    int32 shift."""
+    n_pad = words.shape[0]
+    acc = score_bits_plain(words, q8T).to(torch.int64)
+    local = torch.arange(n_pad, device=words.device) % ROW_BLOCK
+    keys = ((acc << INT8_KEY_SHIFT) | local[:, None]) & 0xFFFFFFFF
+    keys = torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys)
+    return _fold_keys(keys.to(torch.int32), num_rows, bucket)
+
+
+def int8_bucket_keys(words: torch.Tensor, q8T: torch.Tensor, num_rows: int,
+                     bucket: int = BLOCK_BUCKET) -> torch.Tensor:
+    """Kernel #4 (``csrc/int8_bucketed.cu``) on CUDA tensors, the plain
+    version on CPU tensors. words [N_pad, W] int32, q8T [VP, B] int8 ->
+    keys [N_pad / bucket, B] int32."""
+    if _uses_plain("int8_bucket_keys", (words, torch.int32),
+                   (q8T, torch.int8)):
+        return int8_bucket_keys_plain(words, q8T, num_rows, bucket)
+    _check_queries("int8_bucket_keys", words, q8T)
+    n_pad, w = words.shape
+    kb = _check_fold("int8_bucket_keys", n_pad, bucket)
+    b = q8T.shape[1]
+    qp = _pad_queries(q8T)
+    keys = torch.empty((n_pad // bucket, b), dtype=torch.int32,
+                       device=words.device)
+    return _launch("int8_bucketed", keys, words.data_ptr(), qp.data_ptr(),
                    keys.data_ptr(), n_pad, num_rows, w, b, qp.shape[1], kb)
 
 
@@ -237,12 +310,16 @@ def pack_ell_device(ell) -> BitMatrix:
 pack_ell = pack_ell_device
 
 
+def _prepare_bf16(q: torch.Tensor, padded_bits: int) -> torch.Tensor:
+    qT = q.float().T
+    qT = F.pad(qT, (0, 0, 0, padded_bits - qT.shape[0]))
+    return qT.to(torch.bfloat16).contiguous()
+
+
 def prepare_queries(q: torch.Tensor, bitmat: BitMatrix) -> torch.Tensor:
     """q [B, V] -> padded transposed bf16 operand [VP, B] (queries are
     rounded to bf16 exactly as the JAX package rounds them)."""
-    qT = q.float().T
-    qT = F.pad(qT, (0, 0, 0, bitmat.padded_bits - qT.shape[0]))
-    return qT.to(torch.bfloat16).contiguous()
+    return _prepare_bf16(q, bitmat.padded_bits)
 
 
 def bitpack_scores(q: torch.Tensor, bitmat: BitMatrix) -> torch.Tensor:
@@ -256,6 +333,38 @@ def _bucketed_keys(q: torch.Tensor, bitmat: BitMatrix,
     """[N_pad / bucket, B] int32 candidate keys (kernel #3)."""
     return bucket_keys(bitmat.words, prepare_queries(q, bitmat),
                        bitmat.num_rows, bucket)
+
+
+def _int8_bucketed_keys(q8T: torch.Tensor, bitmat: BitMatrix,
+                        bucket: int = BLOCK_BUCKET) -> torch.Tensor:
+    """[N_pad / bucket, B] int32 candidate keys (kernel #4). ``q8T`` is a
+    ``prepare_queries_int8`` operand: quantize once a batch, not once a
+    block."""
+    return int8_bucket_keys(bitmat.words, q8T, bitmat.num_rows, bucket)
+
+
+def _key_scores(keys: torch.Tensor) -> torch.Tensor:
+    """f32 scores of kernel #3's keys: the key with its low 10 bits
+    cleared, -inf for empty keys."""
+    scores = (keys & ~(ROW_BLOCK - 1)).view(torch.float32)
+    return torch.where(keys < 0, torch.full_like(scores, float("-inf")),
+                       scores)
+
+
+def _int8_key_scores(keys: torch.Tensor) -> torch.Tensor:
+    """f32 scores of kernel #4's keys: the key shifted right (exact
+    integers), -inf for empty keys."""
+    return torch.where(keys < 0, float("-inf"),
+                       (keys >> INT8_KEY_SHIFT).to(torch.float32))
+
+
+def _key_gids(keys: torch.Tensor, pos: torch.Tensor, kb: int
+              ) -> torch.Tensor:
+    """Row ids of the keys at candidate positions ``pos`` (any shape, on
+    the key axis of ``keys`` [m, B] transposed): the position's 1024-row
+    block plus the key's local row id."""
+    sel = torch.gather(keys.T, 1, pos)
+    return (pos // kb) * ROW_BLOCK + (sel & (ROW_BLOCK - 1))
 
 
 def bitpack_bucketed_topk(q: torch.Tensor, bitmat: BitMatrix, k: int,
@@ -274,18 +383,14 @@ def bitpack_bucketed_topk(q: torch.Tensor, bitmat: BitMatrix, k: int,
     """
     if k * bucket > bitmat.num_rows:
         return bitpack_topk_search(q, bitmat, k=k)
-    keys = _bucketed_keys(q, bitmat, bucket)
-    m = keys.shape[0]
-    kb = ROW_BLOCK // bucket
-    idx_mask = ROW_BLOCK - 1
-    local = keys & idx_mask
-    scores = (keys & ~idx_mask).view(torch.float32)
-    scores = torch.where(keys < 0, torch.full_like(scores, float("-inf")),
-                         scores)
-    block_id = (torch.arange(m, device=keys.device) // kb)[:, None]
-    gids = block_id * ROW_BLOCK + local  # [m, B]
-    s, pos = top_k(scores.T, min(k, m))
-    return torch.gather(gids.T, 1, pos), s
+    return _keys_topk(_bucketed_keys(q, bitmat, bucket), k, bucket)
+
+
+def _keys_topk(keys: torch.Tensor, k: int, bucket: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids, scores) [B, min(k, m)] of kernel #3's keys [m, B]."""
+    s, pos = top_k(_key_scores(keys).T, min(k, keys.shape[0]))
+    return _key_gids(keys, pos, ROW_BLOCK // bucket), s
 
 
 def bitpack_topk_search(q: torch.Tensor, bitmat: BitMatrix, k: int
@@ -293,3 +398,114 @@ def bitpack_topk_search(q: torch.Tensor, bitmat: BitMatrix, k: int
     """(ids, scores) [B, k]: kernel #2 scoring + exact top-k."""
     s, i = top_k(bitpack_scores(q, bitmat), k)
     return i, s
+
+
+# -- the block tier: an index whose packed bits exceed the device ------------
+def blockwise_route(selection: str, n: int, nnz_pad: int, k: int,
+                    bucket: int, cand_budget: int) -> Tuple[str, int]:
+    """(selection, candidates carried) that ``bitpack_blockwise_topk``
+    runs, after the JAX package's own routes: int8 carries
+    ``max(cand_budget or 2k, k)`` candidates, and goes to exact when the
+    fold would leave fewer than that (``cand * bucket > n``) and to
+    bucketed when ``score << 10`` could overflow the int32 key
+    (``nnz_pad * 127 >= 2^21``)."""
+    if selection not in ("exact", "bucketed", "bucketed_int8"):
+        raise ValueError(f"unknown selection {selection!r}")
+    if selection != "bucketed_int8":
+        return selection, k
+    cand = min(max(cand_budget or 2 * k, k), n)
+    if cand * bucket > n:
+        return "exact", k
+    if nnz_pad * 127 >= 1 << (31 - INT8_KEY_SHIFT):
+        return "bucketed", k
+    return selection, cand
+
+
+def merge_topk(best_s: torch.Tensor, best_i: torch.Tensor,
+               s: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k of the carried best and a block's (scores, global ids),
+    concatenated as [carried, block]."""
+    s2, sel = top_k(torch.cat([best_s, s], dim=1), k)
+    return s2, torch.gather(torch.cat([best_i, ids], dim=1), 1, sel)
+
+
+def _merge_keys(scores: torch.Tensor, keys: torch.Tensor,
+                best_s: torch.Tensor, best_i: torch.Tensor, width: int,
+                kb: int, row0: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One top-k over [B, m + width]: the block's decoded keys first,
+    then the carried best; winners take their row id from the key
+    (in the block) or from the carried ids."""
+    m = keys.shape[0]
+    s2, pos = top_k(torch.cat([scores.T, best_s], dim=1), width)
+    gid = _key_gids(keys, pos.clamp_max(m - 1), kb) + row0
+    carried = torch.gather(best_i, 1, (pos - m).clamp_min(0))
+    return s2, torch.where(pos < m, gid, carried)
+
+
+def bitpack_blockwise_topk(q: torch.Tensor, cols: torch.Tensor,
+                           nnz: torch.Tensor, num_cols: int, k: int,
+                           block_rows: int = 1 << 18,
+                           selection: str = "bucketed",
+                           bucket: int = BLOCK_BUCKET,
+                           cand_budget: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids, scores) [B, k] over a compact ELL (cols [n, nnz_pad] int16
+    bit patterns or int32, nnz [n]) that lives where ``q`` does and whose
+    packed form would not fit the device.
+
+    Row blocks of ``block_rows`` (rounded to 1024) are packed (kernel #1)
+    one at a time, so only one block's bits (1 GiB at 262,144 rows) are
+    live, then scored and merged into a running best:
+    - 'exact': kernel #2 and a top-k of the block, merged as
+      [carried, block];
+    - 'bucketed': kernel #3 at ``bucket``, the decoded keys merged as
+      [block, carried] in one top-k (per block 'exact' when
+      ``min(k, rows) * bucket`` exceeds the block's rows);
+    - 'bucketed_int8': kernel #4 over the int8 query operand, carrying
+      ``max(cand_budget or 2k, k)`` candidates, then ``exact_rerank``
+      restores f32-exact scores and order (routes: ``blockwise_route``).
+    The concatenation orders and the stable top-k are the JAX package's,
+    so tied rows survive as they do there. The last block packs only its
+    own rows (padded to 1024), where JAX pads it to the full block: the
+    valid keys and their order are the same.
+    """
+    n, nnz_pad = cols.shape
+    if n == 0:
+        raise ValueError("empty index")
+    block_rows = min(_round_up(block_rows, ROW_BLOCK),
+                     _round_up(n, ROW_BLOCK))
+    k = min(k, n)
+    selection, width = blockwise_route(selection, n, nnz_pad, k, bucket,
+                                       cand_budget)
+    q = q.float()
+    b = q.shape[0]
+    vp = _round_up(num_cols, TILE_BITS)
+    kb = ROW_BLOCK // bucket
+    # the query operand is prepared once a batch, not once a block
+    if selection == "bucketed_int8":
+        q8T = prepare_queries_int8(q, vp)
+    else:
+        qT = _prepare_bf16(q, vp)
+    best_s = torch.full((b, width), float("-inf"), device=q.device)
+    best_i = torch.zeros((b, width), dtype=torch.int64, device=q.device)
+    for row0 in range(0, n, block_rows):
+        rows = min(block_rows, n - row0)
+        words = pack_bits(widen_cols(cols[row0:row0 + rows]),
+                          nnz[row0:row0 + rows].contiguous(), num_cols)
+        if selection == "bucketed_int8":
+            keys = int8_bucket_keys(words, q8T, rows, bucket)
+            best_s, best_i = _merge_keys(_int8_key_scores(keys), keys,
+                                         best_s, best_i, width, kb, row0)
+        elif selection == "bucketed" and min(k, rows) * bucket <= rows:
+            keys = bucket_keys(words, qT, rows, bucket)
+            best_s, best_i = _merge_keys(_key_scores(keys), keys, best_s,
+                                         best_i, width, kb, row0)
+        else:
+            s, ids = top_k(score_bits(words, qT)[:rows].T, min(k, rows))
+            best_s, best_i = merge_topk(best_s, best_i, s, ids + row0, k)
+    if selection == "bucketed_int8":
+        ell = ELLMatrix(cols=cols, nnz=nnz, vals=None, num_cols=num_cols,
+                        sentinel_padded=False)
+        return exact_rerank(q, ell, best_i, k)
+    return best_i, best_s

@@ -22,7 +22,7 @@ _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          "_build")
 SOURCES = {"pack": "pack.cu", "scores": "scores.cu",
-           "bucketed": "bucketed.cu"}
+           "bucketed": "bucketed.cu", "int8_bucketed": "int8_bucketed.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -37,6 +37,8 @@ _SIGNATURES = {
     "scores": ("vs_bitpack_scores", [_P, _P, _P, _L, _I, _I, _I, _P]),
     "bucketed": ("vs_bucketed_keys", [_P, _P, _P, _L, _L, _I, _I, _I, _I,
                                       _P]),
+    "int8_bucketed": ("vs_int8_bucketed_keys", [_P, _P, _P, _L, _L, _I, _I,
+                                                _I, _I, _P]),
 }
 
 

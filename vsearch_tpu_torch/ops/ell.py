@@ -148,6 +148,16 @@ class ELLMatrix:
             num_cols=self.num_cols, sentinel_padded=self.sentinel_padded)
 
 
+def widen_cols(cols: torch.Tensor) -> torch.Tensor:
+    """int32 column ids of a compact ELL. 16-bit columns are kept
+    as int16 bit patterns of the JAX package's uint16 (some CUDA ops
+    refuse torch's uint16), so they widen through ``& 0xFFFF``."""
+    if cols.dtype == torch.int16:
+        return (cols.to(torch.int32) & 0xFFFF).contiguous()
+    return cols.to(torch.int32).contiguous()
+
+
+
 def ell_from_topk(cols, vals, num_cols: int, pad_multiple: int = 128,
                   device="cuda") -> ELLMatrix:
     """ELLMatrix from top-k output (cols sentinel-padded with

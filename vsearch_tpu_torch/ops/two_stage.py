@@ -1,13 +1,15 @@
-"""Exact sparse search (counterpart of ``exact_search`` in
-``vsearch_tpu/ops/two_stage.py``; the binary-support proxy of that module
-is not ported yet)."""
+"""Two-stage sparse search primitives (counterpart of
+``vsearch_tpu/ops/two_stage.py``): exact search, and the exact rerank of
+candidate rows that follows a cheaper selection. The binary-support proxy
+of that module is not ported yet."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
-from .ell import ELLMatrix, ell_matvec_chunked
+from .ell import ELLMatrix, ell_matvec_chunked, widen_cols
 from .search import top_k
 
 
@@ -19,3 +21,31 @@ def exact_search(q: torch.Tensor, ell: ELLMatrix, k: int,
     k = min(k, scores.shape[1])
     s, i = top_k(scores, k)
     return i, s
+
+
+def exact_rerank(q: torch.Tensor, ell: ELLMatrix, cand: torch.Tensor,
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact f32 scores of the candidate rows ``cand`` [B, C] only;
+    returns (ids, scores) [B, k].
+
+    One gather of B*C*nnz_pad query values, over the zero-padded query
+    (sentinel columns hit the zero at index V). An ELL that is not
+    sentinel-padded is masked by ``nnz``; ``vals``, when present, weight
+    the gathered values. ``ell.cols`` may hold int16 bit patterns of
+    uint16 ids (the block tier's compact ELL)."""
+    b, c = cand.shape
+    nnz_pad = ell.nnz_pad
+    v = ell.num_cols
+    flat = cand.reshape(-1).long()
+    crows = widen_cols(ell.cols[flat]).long().clamp(0, v)
+    qp = F.pad(q.float(), (0, 1))  # [B, V+1]
+    g = torch.gather(qp, 1, crows.view(b, c * nnz_pad)).view(b, c, nnz_pad)
+    if ell.vals is not None:
+        g = g * ell.vals[flat].view(b, c, nnz_pad).float()
+    elif not ell.sentinel_padded:
+        valid = (torch.arange(nnz_pad, device=g.device)[None, None, :]
+                 < ell.nnz[flat].view(b, c, 1))
+        g = g * valid.float()
+    scores = g.sum(dim=-1)  # [B, C]
+    top_scores, pos = top_k(scores, k)
+    return torch.gather(cand, 1, pos), top_scores
