@@ -5,7 +5,9 @@
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. card, power limit and versions;
-  2. build of the CUDA kernels from ``vsearch_tpu_torch/ops/csrc``;
+  2. build of the CUDA kernels from ``vsearch_tpu_torch/ops/csrc``, with
+     each kernel function's registers, spills and static shared memory
+     from ``nvcc -Xptxas -v``;
   3. kernels #1-#3 against their plain PyTorch versions at a ragged
      small shape;
   4. the main path: SVDR beta search through ``Retriever`` at BERT-base
@@ -27,9 +29,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      must send it to the block tier with int8 selection (kernel #4);
      ``retrieve(rerank=True, k=100)`` runs on ``--batches`` batches, then
      the same rows on the host go through the stream tier. Both first
-     stages are held against exact blockwise scores (kernel #2), and
-     kernels #4 and #3 (bucket 16) against their plain versions on one
-     full 262,144-row block.
+     stages are held against exact blockwise scores (kernel #2), the
+     block tier's first stage is profiled by kernel, and kernels #4 and
+     #3 (buckets 16 and 8: the block and stream tiers' folds) are held
+     against their plain versions on one full 262,144-row block and timed
+     there with their launch geometry.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -39,6 +43,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import resource
 import subprocess
 import sys
@@ -83,6 +88,44 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_report(logs: dict) -> dict:
+    """Per kernel function, what ``nvcc -Xptxas -v`` printed: registers a
+    thread, spill stores and loads (bytes a thread) and static shared
+    memory (bytes a CTA)."""
+    out = {}
+    for text in logs.values():
+        for part in text.split("Compiling entry function '")[1:]:
+            def num(pat):
+                m = re.search(pat, part)
+                return int(m.group(1)) if m else 0
+            out[part.split("'", 1)[0]] = {
+                "registers": num(r"Used (\d+) registers"),
+                "spill_stores": num(r"(\d+) bytes spill stores"),
+                "spill_loads": num(r"(\d+) bytes spill loads"),
+                "smem": num(r"(\d+) bytes smem")}
+    return out
+
+
+def fold_line(bp, ptx: dict, name: str, n_pad: int, bucket: int, w: int,
+              ms: float, nbytes: int) -> str:
+    """Launch geometry, resources and achieved rate of one fold kernel
+    (#3 ``bucketed``, #4 ``int8_bucketed``) call of ``ms``; the warps an
+    SM holds are the CUDA runtime's occupancy figure."""
+    from vsearch_tpu_torch.ops import cuda_build
+
+    geom = bp.fold_geometry(n_pad, bucket, B, w)
+    fn = f"{name}_kernel"
+    r = ptx.get(fn, {})
+    ctas = cuda_build.fold_occupancy(name)
+    return (f"{fn}: grid {geom.grid} CTAs of {geom.warps} warps = "
+            f"{geom.grid[0] * geom.grid[1]} CTAs, {geom.total_warps} warps; "
+            f"{r.get('registers', 0)} registers, spills "
+            f"{r.get('spill_stores', 0)}/{r.get('spill_loads', 0)} B "
+            f"(stores/loads), shared memory {r.get('smem', 0)} B a CTA; "
+            f"{ctas * geom.warps} warps resident an SM (runtime occupancy); "
+            f"{nbytes / ms / 1e6:.1f} GB/s")
 
 
 # -- synthetic data -----------------------------------------------------------
@@ -280,10 +323,11 @@ def main() -> int:
 
     # -- phase 2: kernel build ------------------------------------------------
     build_s = cuda_build.build_all(verbose=True, force=True)
-    for src, out in cuda_build.last_build["logs"].items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+    ptx = ptxas_report(cuda_build.last_build["logs"])
+    for fn, r in sorted(ptx.items()):
+        log(f"  ptxas {fn}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, "
+            f"static shared memory {r['smem']} B")
     log(f"phase 2: built {len(cuda_build.SOURCES)} kernel libraries in "
         f"{build_s:.2f} s (parallel nvcc, sm_90a)")
 
@@ -417,12 +461,14 @@ def main() -> int:
     require(torch.equal(bp.bucket_keys(bits, dyT, n),
                         bp.bucket_keys_plain(bits, dyT, n)),
             "bucketed keys not bit-identical under dyadic queries")
+    ms3 = time_ms(lambda: bp.bucket_keys(bits, qT, n), 10)
+    bytes3 = bits.numel() * 4 + qT.numel() * 2 + keys_k.numel() * 4
     entry("bucketed_keys", "bucketed.cu", 412,
-          launch_big["bucketed"] + launch_small["bucketed"], err_keys,
-          time_ms(lambda: bp.bucket_keys(bits, qT, n), 5),
-          time_ms(lambda: bp.bucket_keys_plain(bits, qT, n), 1),
-          bits.numel() * 4 + qT.numel() * 2 + keys_k.numel() * 4,
+          launch_big["bucketed"] + launch_small["bucketed"], err_keys, ms3,
+          time_ms(lambda: bp.bucket_keys_plain(bits, qT, n), 1), bytes3,
           nbits * B, None)
+    log("    " + fold_line(bp, ptx, "bucketed", bits.shape[0], bp.BUCKET,
+                           bits.shape[1], ms3, bytes3))
     del keys_k, keys_p
 
     ell_s, words_s = idx_small.ell, idx_small.bitmat.words
@@ -488,11 +534,15 @@ def main() -> int:
     retriever.index = None
     gc.collect()
     torch.cuda.empty_cache()
-    large = phase_large(torch, bp, dev, args, retriever, tok, words, rng)
+    large = phase_large(torch, bp, dev, args, retriever, tok, words, rng,
+                        ptx)
     lb, ls = large["launch_block"], large["launch_stream"]
     for e in kernels:  # the launches of phase 8's two paths
         e["launches"] += {"pack_ell": lb["pack"] + ls["pack"],
                           "bucketed_keys": ls["bucketed"]}.get(e["name"], 0)
+        if e["name"] == "bucketed_keys":  # at the stream tier's own shape
+            e.update(block_b8_ms=large["b8_ms"],
+                     block_b8_bound_ms=large["b8_bound_ms"])
     entry("int8_bucketed_keys", "int8_bucketed.cu", 512,
           lb["int8_bucketed"], 0, large["ms"], large["plain_ms"],
           large["nbytes"], large["ops"], None, peak=H100_INT8_OPS)
@@ -529,8 +579,8 @@ def recall_by_threshold(torch, q_emb, ids, ref_scores, cols, nnz, v):
 
 def profile_first_stage(torch, idx, q_emb) -> None:
     """Where one block-tier first stage spends the card's time:
-    ``torch.profiler`` device time by kernel, and the share of the host
-    clock in which the card was busy."""
+    ``torch.profiler`` device time by kernel, the share of the host clock
+    in which the card was busy, and kernel #4's share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -555,13 +605,19 @@ def profile_first_stage(torch, idx, q_emb) -> None:
         "kernel: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
             f"x{e.count}" for e in rows[:6]))
+    k4 = sum(e.self_device_time_total for e in rows
+             if e.key.startswith("int8_bucketed")) / 1e6
+    log(f"  kernel #4 in that profile: {k4 * 1e3:.1f} ms, {k4 / busy:.1%} "
+        "of the busy time")
 
 
-def phase_large(torch, bp, dev, args, retriever, tok, words, rng) -> dict:
+def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
+                ptx) -> dict:
     """Phase 8: ``--wiki-rows`` rows through the block tier (Retriever,
     auto mode) and the stream tier, held against exact blockwise scores;
-    kernels #4 and #3 (bucket 16) on one full block. Returns the launch
-    counts of both paths and kernel #4's measurements."""
+    kernels #4 and #3 (buckets 16 and 8) on one full block. Returns the
+    launch counts of both paths, kernel #4's measurements and kernel #3's
+    at bucket 8."""
     from vsearch_tpu_torch.index import BoTIndex
     from vsearch_tpu_torch.index.bot_build import build_bot_ell
     from vsearch_tpu_torch.ops.ell import ELLMatrix, widen_cols
@@ -678,14 +734,16 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng) -> dict:
                         atol=1e-2 * abs(expect).max()),
             "rerank scores disagree with a dense re-embed")
 
-    # -- kernels #4 and #3 (bucket 16) on one full block ----------------------
+    # -- kernels #4 and #3 (buckets 16 and 8) on one full block -------------
     rows = min(BLOCK_ROWS, n)
     blk = bp.pack_bits(widen_cols(cols_b[:rows]), nnz_b[:rows].contiguous(),
                        v)
-    vp = blk.shape[1] * 32
+    n_pad, w = blk.shape
+    vp = w * 32
     q8T = bp.prepare_queries_int8(torch.from_numpy(q_embs[0]).to(dev), vp)
     keys_k = bp.int8_bucket_keys(blk, q8T, rows)
-    require(torch.equal(keys_k, bp.int8_bucket_keys_plain(blk, q8T, rows)),
+    want4 = bp.int8_bucket_keys_plain(blk, q8T, rows)
+    require(torch.equal(keys_k, want4),
             "int8 bucketed kernel != plain at the block shape")
     out = dict(
         ms=time_ms(lambda: bp.int8_bucket_keys(blk, q8T, rows), 20),
@@ -693,22 +751,33 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng) -> dict:
                          1),
         nbytes=blk.numel() * 4 + q8T.numel() + keys_k.numel() * 4,
         ops=int(nnz_b[:rows].sum()) * B)
+    log(f"  kernel #4 on one {rows}-row block, B={B}: bit-identical to "
+        f"plain, {out['ms']:.3f} ms")
+    log("    " + fold_line(bp, ptx, "int8_bucketed", n_pad, bp.BLOCK_BUCKET,
+                           w, out["ms"], out["nbytes"]))
     dyT = torch.from_numpy((rng.integers(0, 129, size=(vp, B)) / 16.0)
                            .astype(np.float32)).to(dev)
     dyT[v:] = 0
     dyT = dyT.to(torch.bfloat16)
-    k16 = bp.bucket_keys(blk, dyT, rows, 16)
-    require(torch.equal(k16, bp.bucket_keys_plain(blk, dyT, rows, 16)),
-            "bucketed kernel (bucket 16) != plain at the block shape")
-    ms16 = time_ms(lambda: bp.bucket_keys(blk, dyT, rows, 16), 20)
-    plain16 = time_ms(lambda: bp.bucket_keys_plain(blk, dyT, rows, 16), 1)
-    bound16 = (blk.numel() * 4 + dyT.numel() * 2 + k16.numel() * 4) \
-        / H100_BYTES_PER_S * 1e3
-    log(f"  kernel #4 on one {rows}-row block, B={B}: bit-identical to "
-        f"plain; kernel #3 at bucket 16, same block, dyadic weights: "
-        f"bit-identical, {ms16:.3f} ms (plain {plain16:.3f} ms, bound "
-        f"{bound16:.3f} ms)")
-    del blk, q8T, keys_k, dyT, k16
+    for bucket in (bp.BLOCK_BUCKET, bp.BUCKET):  # block tier, stream tier
+        keys = bp.bucket_keys(blk, dyT, rows, bucket)
+        require(torch.equal(keys, bp.bucket_keys_plain(blk, dyT, rows,
+                                                       bucket)),
+                f"bucketed kernel (bucket {bucket}) != plain at the block "
+                "shape")
+        ms = time_ms(lambda: bp.bucket_keys(blk, dyT, rows, bucket), 20)
+        plain = time_ms(lambda: bp.bucket_keys_plain(blk, dyT, rows, bucket),
+                        1)
+        nbytes = blk.numel() * 4 + dyT.numel() * 2 + keys.numel() * 4
+        bound = nbytes / H100_BYTES_PER_S * 1e3
+        log(f"  kernel #3 at bucket {bucket}, same block, dyadic weights: "
+            f"bit-identical, {ms:.3f} ms (plain {plain:.3f} ms, bound "
+            f"{bound:.3f} ms)")
+        log("    " + fold_line(bp, ptx, "bucketed", n_pad, bucket, w, ms,
+                               nbytes))
+        if bucket == bp.BUCKET:
+            out.update(b8_ms=ms, b8_bound_ms=bound)
+    del blk, q8T, keys_k, want4, dyT, keys
 
     # -- the stream tier over the same rows on the host -----------------------
     sidx = BoTIndex(search_mode="stream", device=dev)

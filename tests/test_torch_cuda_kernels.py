@@ -87,3 +87,50 @@ def test_int8_keys_and_bucket16(case, b):
     qT = dy.to(torch.bfloat16)
     assert torch.equal(bp.bucket_keys(words, qT, n, 16),
                        bp.bucket_keys_plain(words, qT, n, 16))
+
+
+@pytest.fixture(scope="module", params=["ragged", "wide"])
+def fold_case(request, dev):
+    """Packed rows for the fold kernels: a ragged row count (3000 rows, or
+    2053 rows of 1280 words, so a row ends in a part-filled 2 KB load of
+    the warp), an all-zero row and a row with every vocab bit set (more
+    set bits than a warp's decode list holds)."""
+    rng = np.random.default_rng(1)
+    n, v = (3000, 5000) if request.param == "ragged" else (2053, 40000)
+    nnz_pad = 128
+    nnz = rng.integers(0, nnz_pad + 1, size=n).astype(np.int32)
+    cols = np.full((n, nnz_pad), v, np.int32)
+    for i in range(n):
+        cols[i, : nnz[i]] = rng.choice(v, size=int(nnz[i]), replace=False)
+    nnz[5] = 0
+    words = bp.pack_bits(torch.from_numpy(cols).to(dev),
+                         torch.from_numpy(nnz).to(dev), v)
+    full = bp.pack_bits_plain(torch.arange(v, dtype=torch.int32)[None],
+                              torch.tensor([v], dtype=torch.int32), v)
+    words[n - 2] = full[0].to(dev)
+    assert v > 256  # a warp's decode list holds 256 (kListCap, bitrow.cuh)
+    return words, n, v, rng
+
+
+@pytest.mark.parametrize("bucket", [8, 16, 128])
+@pytest.mark.parametrize("b", [1, 7, 32, 45])
+def test_fold_kernels_bit_identical(fold_case, b, bucket):
+    """Kernels #3 (dyadic weights) and #4 (any weights) equal their plain
+    versions bit for bit."""
+    words, n, v, rng = fold_case
+    vp = words.shape[1] * 32
+    dy = torch.from_numpy((rng.integers(0, 129, size=(vp, b)) / 16.0)
+                          .astype(np.float32)).to(words.device)
+    dy[v:] = 0
+    qT = dy.to(torch.bfloat16)
+    before = dict(bp.LAUNCHES)
+    got = bp.bucket_keys(words, qT, n, bucket)
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES["bucketed"] == before["bucketed"] + 1
+    assert torch.equal(got, bp.bucket_keys_plain(words, qT, n, bucket))
+    q = torch.from_numpy(np.abs(rng.normal(size=(b, v))).astype(np.float32))
+    q8T = bp.prepare_queries_int8(q.to(words.device), vp)
+    got = bp.int8_bucket_keys(words, q8T, n, bucket)
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES["int8_bucketed"] == before["int8_bucketed"] + 1
+    assert torch.equal(got, bp.int8_bucket_keys_plain(words, q8T, n, bucket))

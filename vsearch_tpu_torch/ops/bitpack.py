@@ -189,6 +189,51 @@ def _check_fold(name: str, n_pad: int, bucket: int) -> int:
     return kb
 
 
+# -- launch geometry of the fold kernels (#3, #4; csrc/bitrow.cuh) -----------
+FOLD_WARPS = 8  # warps a CTA, one key slot a warp (kFoldWarps in bitrow.cuh)
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldGeometry:
+    """How a fold kernel launches: CTA x of the ``grid[0]`` along the rows
+    owns the ``warps`` consecutive key slots ``(x % (kb // warps)) *
+    warps + w`` of 1024-row block ``x // (kb // warps)``, one slot a warp
+    (``fold_slot`` in bitrow.cuh); ``grid[1]`` tiles the queries by 32."""
+
+    kb: int
+    grid: Tuple[int, int]
+    warps: int = FOLD_WARPS
+
+    @property
+    def total_warps(self) -> int:
+        return self.grid[0] * self.grid[1] * self.warps
+
+    def c_args(self) -> Tuple[int, int]:
+        """(kb, grid_x), as the C entry points take them."""
+        return self.kb, self.grid[0]
+
+
+def fold_geometry(n_pad: int, bucket: int, b: int, num_words: int
+                  ) -> FoldGeometry:
+    """The launch geometry of kernel #3 or #4 over ``n_pad`` rows of
+    ``num_words`` words folded by ``bucket`` for ``b`` queries."""
+    kb = _check_fold("fold_geometry", n_pad, bucket)
+    if num_words * 32 * _round_up(max(b, 1), 32) * 2 >= 2 ** 31:
+        raise ValueError("fold_geometry: the query operand's int32 byte "
+                         "offsets would overflow")
+    grid_x = (n_pad // ROW_BLOCK) * (kb // FOLD_WARPS)
+    return FoldGeometry(kb=kb, grid=(grid_x, _round_up(max(b, 1), 32) // 32))
+
+
+def _check_rows(name: str, words: torch.Tensor, qp: torch.Tensor) -> None:
+    """The fold kernels read rows in 512-byte chunks of 16-byte loads,
+    and the query operand 4 bytes at a time."""
+    if words.shape[1] % LANES or words.data_ptr() % 16 or qp.data_ptr() % 16:
+        raise ValueError(f"{name}: rows of {words.shape[1]} words must be "
+                         f"a multiple of {LANES} words, and rows and "
+                         "queries 16-byte aligned")
+
+
 def _fold_keys(keys: torch.Tensor, num_rows: int, bucket: int
                ) -> torch.Tensor:
     """Mask rows >= num_rows to INT32_MIN and max-fold each 1024-row
@@ -237,13 +282,15 @@ def bucket_keys(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
         return bucket_keys_plain(words, qT, num_rows, bucket)
     _check_queries("bucket_keys", words, qT)
     n_pad, w = words.shape
-    kb = _check_fold("bucket_keys", n_pad, bucket)
     b = qT.shape[1]
+    geom = fold_geometry(n_pad, bucket, b, w)
     qp = _pad_queries(qT)
+    _check_rows("bucket_keys", words, qp)
     keys = torch.empty((n_pad // bucket, b), dtype=torch.int32,
                        device=words.device)
     return _launch("bucketed", keys, words.data_ptr(), qp.data_ptr(),
-                   keys.data_ptr(), n_pad, num_rows, w, b, qp.shape[1], kb)
+                   keys.data_ptr(), num_rows, w, b, qp.shape[1],
+                   *geom.c_args())
 
 
 # -- kernel #4: integer score + bucketed keys ---------------------------------
@@ -286,13 +333,15 @@ def int8_bucket_keys(words: torch.Tensor, q8T: torch.Tensor, num_rows: int,
         return int8_bucket_keys_plain(words, q8T, num_rows, bucket)
     _check_queries("int8_bucket_keys", words, q8T)
     n_pad, w = words.shape
-    kb = _check_fold("int8_bucket_keys", n_pad, bucket)
     b = q8T.shape[1]
+    geom = fold_geometry(n_pad, bucket, b, w)
     qp = _pad_queries(q8T)
+    _check_rows("int8_bucket_keys", words, qp)
     keys = torch.empty((n_pad // bucket, b), dtype=torch.int32,
                        device=words.device)
     return _launch("int8_bucketed", keys, words.data_ptr(), qp.data_ptr(),
-                   keys.data_ptr(), n_pad, num_rows, w, b, qp.shape[1], kb)
+                   keys.data_ptr(), num_rows, w, b, qp.shape[1],
+                   *geom.c_args())
 
 
 # -- search entry points -----------------------------------------------------

@@ -7,7 +7,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace vs {
 
@@ -85,4 +88,301 @@ __device__ __forceinline__ typename Accum<T>::type row_score(
   return acc;
 }
 
+// ---------------------------------------------------------------------------
+// The slot fold of kernels #3 and #4: score rows, splice each score with
+// its local row id into an int32 key, and max-fold the keys of each
+// 1024-row block to kb = 1024 / bucket slots (local rows l and l' share
+// slot l % kb, the grouping of JAX's halving fold).
+//
+// Geometry (grid_x computed by the Python wrapper, `fold_geometry`): a CTA
+// of kFoldWarps warps owns kFoldWarps consecutive slots of one 1024-row
+// block, one slot a warp; CTA x serves block x / (kb / kFoldWarps). Warp w
+// folds the `bucket` rows block * 1024 + j * kb + slot (j < bucket) of its
+// slot, keeping the running max in registers: no atomics, and as many
+// warps as slots (16,384 for a 262,144-row block at bucket 16) to fill the
+// card.
+//
+// A row is scored by decode, then gather. The warp loads the row into
+// registers, 2 KB at a time (one 16-byte streaming load a lane per
+// 512-byte chunk), turns its set bits into a list of query-operand offsets
+// in shared memory, then sums the operand over the list with kGather loads
+// in flight a lane, each load serving several queries (QuadSum for int8,
+// PairSum for bf16, below). The list keeps word order, then bit order
+// within a word, the order of row_score: f32 sums are bit-identical to it
+// and int32 sums are exact. A row with more set bits than the list holds
+// is summed in chunks of the list, in the same order. (row_score's walk,
+// and a ring of rows staged in shared memory with cp.async, were measured
+// slower on the H100: PERF.md.)
+constexpr int kRowBlock = 1024;   // rows of one fold block
+constexpr int kFoldWarps = 8;     // warps a CTA (bitpack.FOLD_WARPS)
+constexpr int kListCap = 256;     // offsets a warp's list holds
+constexpr int kChunkWords = 128;  // one 512-byte chunk: 4 words a lane
+constexpr int kHeldChunks = 4;    // chunks a warp holds at once
+constexpr int kGather = 8;        // operand loads in flight a lane
+
+// Row sums with four queries a lane, for the int8 operand: lane (g, s) =
+// (lane / 8, lane % 8) loads the 4 bytes of queries 4s .. 4s + 3 of list
+// entries i = g mod 4, so one load serves four queries and a warp keeps
+// 4 x kGather entries in flight. Integer sums make the order free; fold()
+// adds the four groups' partial sums.
+struct QuadSum {
+  static constexpr int kRows = 1;
+  const char* base;
+  int acc[4] = {0, 0, 0, 0};
+  int best[4] = {INT32_MIN, INT32_MIN, INT32_MIN, INT32_MIN};
+
+  __device__ explicit QuadSum(const int8_t* qtile)
+      : base(reinterpret_cast<const char*>(qtile) + 4 * (threadIdx.x & 7)) {}
+
+  // acc += the weights over list[0, n[0]) (integer sums: any order)
+  __device__ __forceinline__ void add(const int* __restrict__ list, int,
+                                      const int (&nn)[1]) {
+    const int n = nn[0];
+    __syncwarp();
+    const int g = (threadIdx.x >> 3) & 3;
+    for (int i = 0; i < n; i += 4 * kGather) {
+      unsigned x[kGather];
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        const int j = i + 4 * u + g;
+        x[u] = j < n ? __ldg(reinterpret_cast<const unsigned*>(base + list[j]))
+                     : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kGather; ++u)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)  // acc[k] += signed byte k of x[u]
+          acc[k] = __dp4a((int)x[u], 1 << (8 * k), acc[k]);
+    }
+    __syncwarp();
+  }
+  template <typename Splice>
+  __device__ __forceinline__ void fold(int, int local, int) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int s = acc[k];
+      s += __shfl_xor_sync(kFullMask, s, 8);
+      s += __shfl_xor_sync(kFullMask, s, 16);
+      best[k] = max(best[k], Splice{}(s, local));
+      acc[k] = 0;
+    }
+  }
+  __device__ __forceinline__ void store(int32_t* __restrict__ out, int q0,
+                                        int b) {
+    const int g = (threadIdx.x >> 3) & 3;
+    const int v = g == 0 ? best[0] : g == 1 ? best[1] : g == 2 ? best[2]
+                                                               : best[3];
+    const int q = q0 + 4 * (threadIdx.x & 7) + g;
+    if (q < b) out[q] = v;
+  }
+};
+
+// Row sums with two queries a lane and two rows at once, for the bf16
+// operand: lane (h, s) = (lane / 16, lane % 16) loads the 4 bytes of
+// queries 2s, 2s + 1 from the list of row h of the pair, so one load
+// serves two queries and the warp gathers for two rows at once, while
+// each query still sums its row's list in order (f32 sums stay
+// identical). store() takes the max of the two halves.
+struct PairSum {
+  static constexpr int kRows = 2;
+  const char* base;
+  float acc[2] = {0.f, 0.f};
+  int best[2] = {INT32_MIN, INT32_MIN};
+
+  __device__ explicit PairSum(const __nv_bfloat16* qtile)
+      : base(reinterpret_cast<const char*>(qtile + 2 * (threadIdx.x & 15))) {}
+
+  // rows h < 2 add their lists list + h * cap, of n[h] entries
+  __device__ __forceinline__ void add(const int* __restrict__ list, int cap,
+                                      const int (&n)[2]) {
+    __syncwarp();
+    const int h = (threadIdx.x >> 4) & 1;
+    const int* mine = list + h * cap;
+    const int my_n = h ? n[1] : n[0];
+    const int len = max(n[0], n[1]);
+    for (int i = 0; i < len; i += kGather) {
+      unsigned x[kGather];
+#pragma unroll
+      for (int u = 0; u < kGather; u += 4) {
+        const int4 o = *reinterpret_cast<const int4*>(mine + i + u);
+        x[u] = i + u < my_n ? __ldg(reinterpret_cast<const unsigned*>(
+                                  base + 2 * o.x))
+                            : 0u;
+        x[u + 1] = i + u + 1 < my_n ? __ldg(reinterpret_cast<const unsigned*>(
+                                          base + 2 * o.y))
+                                    : 0u;
+        x[u + 2] = i + u + 2 < my_n ? __ldg(reinterpret_cast<const unsigned*>(
+                                          base + 2 * o.z))
+                                    : 0u;
+        x[u + 3] = i + u + 3 < my_n ? __ldg(reinterpret_cast<const unsigned*>(
+                                          base + 2 * o.w))
+                                    : 0u;
+      }
+      // bf16 -> f32 is a shift; adding +0 past the end changes nothing (a
+      // sum from +0 is never -0)
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        acc[0] += __uint_as_float(x[u] << 16);
+        acc[1] += __uint_as_float(x[u] & 0xffff0000u);
+      }
+    }
+    __syncwarp();
+  }
+  // fold rows h < rows of the pair, local row ids local0 + h * kb
+  template <typename Splice>
+  __device__ __forceinline__ void fold(int rows, int local0, int kb) {
+    const int h = (threadIdx.x >> 4) & 1;
+    if (h < rows) {
+      best[0] = max(best[0], Splice{}(acc[0], local0 + h * kb));
+      best[1] = max(best[1], Splice{}(acc[1], local0 + h * kb));
+    }
+    acc[0] = acc[1] = 0.f;
+  }
+  __device__ __forceinline__ void store(int32_t* __restrict__ out, int q0,
+                                        int b) {
+    best[0] = max(best[0], __shfl_xor_sync(kFullMask, best[0], 16));
+    best[1] = max(best[1], __shfl_xor_sync(kFullMask, best[1], 16));
+    const int h = (threadIdx.x >> 4) & 1;
+    const int q = q0 + 2 * (threadIdx.x & 15) + h;
+    if (q < b) out[q] = h ? best[1] : best[0];
+  }
+};
+
+// Write the offsets of `word`'s set bits (vocab id v + p * 128 for bit p)
+// to list slots s, s + 1, ... that fall inside [0, cap).
+__device__ __forceinline__ void emit_bits(uint32_t word, int v, int stride,
+                                          int& s, int* list, int cap) {
+  while (word) {
+    const int p = __ffs(word) - 1;
+    word &= word - 1;
+    if ((unsigned)s < (unsigned)cap) list[s] = (v + p * kLanes) * stride;
+    ++s;
+  }
+}
+
+// Append the set bits of chunk c (lane l holds its words 4l .. 4l + 3) to
+// the warp's list; whenever the list would overflow, flush(cap) sums it
+// first.
+template <typename Flush>
+__device__ __forceinline__ void decode_chunk(uint4 w, int c, int* list,
+                                             int cap, int& count, int stride,
+                                             Flush&& flush) {
+  const int lane = threadIdx.x & 31;
+  const int n = __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+  int incl = n;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += t;
+  }
+  int end = count + __shfl_sync(kFullMask, incl, 31);  // uniform
+  int first = count + incl - n;  // this lane's first slot
+  const int v = c * kTileBits + 4 * lane;
+  for (;;) {
+    int s = first;
+    emit_bits(w.x, v, stride, s, list, cap);
+    emit_bits(w.y, v + 1, stride, s, list, cap);
+    emit_bits(w.z, v + 2, stride, s, list, cap);
+    emit_bits(w.w, v + 3, stride, s, list, cap);
+    if (end <= cap) break;
+    flush(cap);
+    first -= cap;
+    end -= cap;
+  }
+  count = end;
+}
+
+// One warp's slot: fold its rows' keys. `Splice` turns (score, local row)
+// into the key. The warp's list of kListCap offsets is split evenly
+// between the Sum's kRows rows.
+template <typename T, typename Splice>
+__device__ __forceinline__ void fold_slot(
+    const uint32_t* __restrict__ words, const T* __restrict__ qT,
+    int32_t* __restrict__ keys, long long num_rows, int num_words, int b,
+    int b_pad, int kb) {
+  __shared__ __align__(16) int lists[kFoldWarps][kListCap];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int groups = kb / kFoldWarps;
+  const int64_t block = blockIdx.x / groups;
+  const int slot = (blockIdx.x % groups) * kFoldWarps + warp;
+  const int64_t first_row = block * kRowBlock + slot;
+  const int bucket = kRowBlock / kb;
+  const int nrows =
+      first_row < num_rows
+          ? (int)min((long long)bucket, (num_rows - 1 - first_row) / kb + 1)
+          : 0;
+  int* list = lists[warp];
+  int32_t* out = keys + (block * kb + slot) * b;
+
+  using Sum =
+      typename std::conditional<sizeof(T) == 1, QuadSum, PairSum>::type;
+  constexpr int kR = Sum::kRows;
+  constexpr int cap = kListCap / kR;  // entries of one row's list
+  Sum sum(qT + blockIdx.y * 32);
+  // decode one chunk of row h of the group into its list; a full list is
+  // summed alone first (the other rows' halves add nothing)
+  auto decode = [&](uint4 w, int c, int h, int& count) {
+    decode_chunk(w, c, list + h * cap, cap, count, b_pad, [&](int n) {
+      int only[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) only[r] = r == h ? n : 0;
+      sum.add(list, cap, only);
+    });
+  };
+
+  const int row_chunks = num_words / kChunkWords;
+  for (int j0 = 0; j0 < nrows; j0 += kR) {
+    int count[kR];
+#pragma unroll
+    for (int h = 0; h < kR; ++h) {
+      count[h] = 0;
+      if (j0 + h >= nrows) continue;  // warp-uniform
+      const uint4* row = reinterpret_cast<const uint4*>(
+          words + (first_row + (int64_t)(j0 + h) * kb) * num_words);
+      for (int c0 = 0; c0 < row_chunks; c0 += kHeldChunks) {
+        uint4 w[kHeldChunks];
+#pragma unroll
+        for (int u = 0; u < kHeldChunks; ++u)
+          w[u] = c0 + u < row_chunks
+                     ? __ldcs(row + (c0 + u) * (kChunkWords / 4) + lane)
+                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int u = 0; u < kHeldChunks; ++u)
+          if (c0 + u < row_chunks) decode(w[u], c0 + u, h, count[h]);
+      }
+    }
+    sum.add(list, cap, count);
+    sum.template fold<Splice>(min(kR, nrows - j0), j0 * kb + slot, kb);
+  }
+  sum.store(out, blockIdx.y * 32, b);
+}
+
 }  // namespace vs
+
+// The fold kernel of one splice (unmangled, so the ptxas report and the
+// profiler name it), its C entry point, and `<entry>_occupancy`: the CTAs
+// of the kernel one SM holds at once, as the CUDA runtime computes them
+// from its registers and shared memory.
+#define VS_FOLD_ENTRY(entry, kernel, T, Splice)                              \
+  extern "C" __global__ void __launch_bounds__(vs::kFoldWarps * 32) kernel(  \
+      const uint32_t* __restrict__ words, const T* __restrict__ qT,          \
+      int32_t* __restrict__ keys, long long num_rows, int num_words, int b,  \
+      int b_pad, int kb) {                                                   \
+    vs::fold_slot<T, Splice>(words, qT, keys, num_rows, num_words, b, b_pad, \
+                             kb);                                            \
+  }                                                                          \
+  extern "C" int entry(const void* words, const void* qT, void* keys,        \
+                       long long num_rows, int num_words, int b, int b_pad,  \
+                       int kb, int grid_x, void* stream) {                   \
+    if (grid_x <= 0 || b <= 0) return 0;                                     \
+    kernel<<<dim3((unsigned)grid_x, (unsigned)(b_pad / 32)),                 \
+             vs::kFoldWarps * 32, 0, (cudaStream_t)stream>>>(                \
+        (const uint32_t*)words, (const T*)qT, (int32_t*)keys, num_rows,      \
+        num_words, b, b_pad, kb);                                            \
+    return (int)cudaGetLastError();                                          \
+  }                                                                          \
+  extern "C" int entry##_occupancy(int* ctas_per_sm) {                       \
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(               \
+        ctas_per_sm, kernel, vs::kFoldWarps * 32, 0);                        \
+  }

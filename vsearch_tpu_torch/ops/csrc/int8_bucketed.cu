@@ -10,15 +10,20 @@
 // groups them. Only the keys [n_pad / bucket, B] reach device memory.
 //
 // Bound on the H100: bytes, the packed rows read once (1 GiB for one
-// 262,144-row block at V' = 29,523). The design is kernel #3's
-// (bucketed.cu) with the int8 operand: the bit walk of bitrow.cuh reads
-// one contiguous 32-byte run of the [VP, B_pad] int8 operand per set bit
-// (1 MB at B = 32, L2-resident) and sums in int32, so the kernel, its
-// plain version and the TPU kernel agree bit for bit with any weights.
-// One block owns one 1024-row block and one 32-query tile; each of its 8
-// warps owns kb / 8 key slots and keeps their running max in a register.
-// The shift runs on uint32_t: a left shift of a negative int is undefined
-// in C++, while JAX's int32 shift wraps, as the unsigned one does.
+// 262,144-row block at V' = 29,523). The first port ran at 15% of that
+// bound, held back by latency: one CTA per 1024-row block (256 CTAs at
+// 262,144 rows, a quarter of the card's warp slots), and a bit walk with
+// one dependent L2 gather of the operand (32 bytes a set bit) in flight
+// per warp, streaming no row bytes while it walked. The design now
+// (bitrow.cuh, `fold_slot`, shared with kernel #3): one warp per key slot
+// (16,384 warps at bucket 16), its rows read with 16-byte streaming loads,
+// each row's set bits decoded into a list of operand offsets in shared
+// memory, then summed with 8 independent gathers in flight a lane, each
+// 4-byte load carrying four queries' weights (`QuadSum`). Sums are int32,
+// so the kernel, its plain version and the TPU kernel agree bit for bit
+// with any weights. The shift runs on uint32_t: a left shift of a
+// negative int is undefined in C++, while JAX's int32 shift wraps, as the
+// unsigned one does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -26,52 +31,20 @@
 
 namespace {
 
-constexpr int kRowBlock = 1024;
 constexpr int kKeyShift = 10;  // log2(kRowBlock): low bits hold the row
-constexpr int kWarps = 8;
 
-__global__ void __launch_bounds__(kWarps * 32)
-int8_bucketed_kernel(const uint32_t* __restrict__ words,
-                     const int8_t* __restrict__ q8T,
-                     int32_t* __restrict__ keys, long long num_rows,
-                     int num_words, int b, int b_pad, int kb) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t row0 = (int64_t)blockIdx.x * kRowBlock;
-  const int q = blockIdx.y * 32 + lane;
-  const int slots_per_warp = kb / kWarps;
-  const int bucket = kRowBlock / kb;
-  for (int i = 0; i < slots_per_warp; ++i) {
-    const int slot = warp * slots_per_warp + i;
-    int best = INT32_MIN;
-    for (int j = 0; j < bucket; ++j) {
-      const int local = j * kb + slot;
-      const int64_t r = row0 + local;
-      if (r >= num_rows) continue;  // uniform across the warp
-      const int s =
-          vs::row_score(words + r * num_words, num_words, q8T + q, b_pad);
-      const int key =
-          (int)(((uint32_t)s << kKeyShift) | (uint32_t)local);
-      best = max(best, key);
-    }
-    if (q < b) keys[((int64_t)blockIdx.x * kb + slot) * b + q] = best;
+// (s << 10) | local, wrapping
+struct Int8Splice {
+  __device__ __forceinline__ int operator()(int s, int local) const {
+    return (int)(((uint32_t)s << kKeyShift) | (uint32_t)local);
   }
-}
+};
 
 }  // namespace
 
-// words [n_pad, num_words] uint32 (n_pad % 1024 == 0), q8T [VP, b_pad]
-// int8 (b_pad % 32 == 0), keys [n_pad / bucket, b] int32 with kb = 1024 /
-// bucket a multiple of 8. Returns cudaGetLastError().
-extern "C" int vs_int8_bucketed_keys(const void* words, const void* q8T,
-                                     void* keys, long long n_pad,
-                                     long long num_rows, int num_words,
-                                     int b, int b_pad, int kb,
-                                     void* stream) {
-  if (n_pad <= 0 || b <= 0) return 0;
-  const dim3 grid((unsigned)(n_pad / kRowBlock), (unsigned)(b_pad / 32));
-  int8_bucketed_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, (const int8_t*)q8T, (int32_t*)keys, num_rows,
-      num_words, b, b_pad, kb);
-  return (int)cudaGetLastError();
-}
+// words [n_pad, num_words] uint32 (n_pad % 1024 == 0, num_words % 128 ==
+// 0, 16-byte aligned), q8T [VP, b_pad] int8 (b_pad % 32 == 0), keys
+// [n_pad / bucket, b] int32 with kb = 1024 / bucket. grid_x comes from
+// the Python wrapper's `fold_geometry`. Returns a cudaError_t.
+VS_FOLD_ENTRY(vs_int8_bucketed_keys, int8_bucketed_kernel, int8_t,
+              Int8Splice)
