@@ -8,8 +8,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   2. build of the CUDA kernels from ``vsearch_tpu_torch/ops/csrc``, with
      each kernel function's registers, spills and static shared memory
      from ``nvcc -Xptxas -v``;
-  3. kernels #1-#3 against their plain PyTorch versions at a ragged
-     small shape;
+  3. kernels #1-#4 against their plain PyTorch versions at a ragged
+     small shape, and #2's scores, spliced and folded, against #3's keys;
   4. the main path: SVDR beta search through ``Retriever`` at BERT-base
      widths (random weights from ``--seed``, bf16 compute), over a
      bag-of-token index of ``--rows`` synthetic Zipf passages built by the
@@ -19,7 +19,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   5. the same over a second index of 65,536 rows, where the exact
      scorer (kernel #2) serves the first stage;
   6. kernels #1-#3 against their plain versions on the main path's own
-     inputs, with times, bounds and the library yardstick;
+     inputs, with times, bounds, the library yardstick and the launch
+     geometry of #2 and #3;
   7. output checks: shapes, finite sorted scores, first-stage recall
      against exact scores, rerank scores against a dense re-embed, and a
      tiny f32 retriever on the card against the same on the CPU;
@@ -29,11 +30,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      must send it to the block tier with int8 selection (kernel #4);
      ``retrieve(rerank=True, k=100)`` runs on ``--batches`` batches, then
      the same rows on the host go through the stream tier. Both first
-     stages are held against exact blockwise scores (kernel #2), the
-     block tier's first stage is profiled by kernel, and kernels #4 and
-     #3 (buckets 16 and 8: the block and stream tiers' folds) are held
-     against their plain versions on one full 262,144-row block and timed
-     there with their launch geometry.
+     stages are held against the exact blockwise sweep (kernel #2, its
+     launches counted as a path of its own); one block-tier first stage
+     and one exact sweep are profiled by kernel; kernels #4, #3 (buckets
+     16 and 8: the block and stream tiers' folds) and #2 are held against
+     their plain versions on one full 262,144-row block and timed there
+     with their launch geometry.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -108,17 +110,17 @@ def ptxas_report(logs: dict) -> dict:
     return out
 
 
-def fold_line(bp, ptx: dict, name: str, n_pad: int, bucket: int, w: int,
-              ms: float, nbytes: int) -> str:
-    """Launch geometry, resources and achieved rate of one fold kernel
-    (#3 ``bucketed``, #4 ``int8_bucketed``) call of ``ms``; the warps an
-    SM holds are the CUDA runtime's occupancy figure."""
+def geometry_line(ptx: dict, name: str, geom, ms: float, nbytes: int
+                  ) -> str:
+    """Launch geometry, resources and achieved rate of one call of ``ms``
+    of kernel #2 (``scores``, geometry from ``score_geometry``), #3
+    (``bucketed``) or #4 (``int8_bucketed``, both from ``fold_geometry``);
+    the warps an SM holds are the CUDA runtime's occupancy figure."""
     from vsearch_tpu_torch.ops import cuda_build
 
-    geom = bp.fold_geometry(n_pad, bucket, B, w)
     fn = f"{name}_kernel"
     r = ptx.get(fn, {})
-    ctas = cuda_build.fold_occupancy(name)
+    ctas = cuda_build.occupancy(name)
     return (f"{fn}: grid {geom.grid} CTAs of {geom.warps} warps = "
             f"{geom.grid[0] * geom.grid[1]} CTAs, {geom.total_warps} warps; "
             f"{r.get('registers', 0)} registers, spills "
@@ -275,6 +277,11 @@ def kernel_checks_small(torch, bp, dev) -> None:
     s_k, s_p = bp.score_bits(words, qT), bp.score_bits_plain(words, qT)
     require(torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-5),
             "scores kernel != plain (random)")
+    for bucket in (8, 16):
+        require(torch.equal(bp.splice_keys(s_k, n, bucket),
+                            bp.bucket_keys(words, qT, n, bucket)),
+                f"scores kernel, spliced and folded, != bucketed kernel "
+                f"(bucket {bucket}, random)")
     q8T = bp.prepare_queries_int8(
         torch.from_numpy(np.abs(rng.normal(size=(b, v)))
                          .astype(np.float32)).to(dev), words.shape[1] * 32)
@@ -286,7 +293,8 @@ def kernel_checks_small(torch, bp, dev) -> None:
     torch.cuda.synchronize()
     log("kernels at ragged shape (n=2500, V=5000, B=7): pack, scores, "
         "bucketed (buckets 8, 16), int8 bucketed (buckets 8, 16) agree "
-        "with plain")
+        "with plain; scores spliced and folded == bucketed keys (random "
+        "weights)")
 
 
 def main() -> int:
@@ -467,8 +475,9 @@ def main() -> int:
           launch_big["bucketed"] + launch_small["bucketed"], err_keys, ms3,
           time_ms(lambda: bp.bucket_keys_plain(bits, qT, n), 1), bytes3,
           nbits * B, None)
-    log("    " + fold_line(bp, ptx, "bucketed", bits.shape[0], bp.BUCKET,
-                           bits.shape[1], ms3, bytes3))
+    log("    " + geometry_line(
+        ptx, "bucketed", bp.fold_geometry(bits.shape[0], bp.BUCKET, B,
+                                          bits.shape[1]), ms3, bytes3))
     del keys_k, keys_p
 
     ell_s, words_s = idx_small.ell, idx_small.bitmat.words
@@ -478,6 +487,9 @@ def main() -> int:
     err_s = float((s_k - s_p).abs().max())
     require(err_s <= 1e-5 * max(float(s_p.abs().max()), 1.0),
             f"scores kernel differs from plain by {err_s}")
+    require(torch.equal(bp.score_bits(words_s, dyT),
+                        bp.score_bits_plain(words_s, dyT)),
+            "scores kernel not bit-identical under dyadic queries")
     # library yardstick: one bf16 matmul over the same rows as dense 0/1
     v = ell_s.num_cols
     n_s = ell_s.cols.shape[0]
@@ -489,12 +501,15 @@ def main() -> int:
     log(f"  library matmul [32, {v}] x [{v}, {n_s}] bf16: max_abs_err "
         f"vs plain {lib_err} (bf16 output)")
     del dense
+    ms2 = time_ms(lambda: bp.score_bits(words_s, qT_s), 10)
+    bytes2 = words_s.numel() * 4 + qT_s.numel() * 2 + s_k.numel() * 4
     entry("bitpack_scores", "scores.cu", 325,
-          launch_big["scores"] + launch_small["scores"], err_s,
-          time_ms(lambda: bp.score_bits(words_s, qT_s), 10),
-          time_ms(lambda: bp.score_bits_plain(words_s, qT_s), 2),
-          words_s.numel() * 4 + qT_s.numel() * 2 + s_k.numel() * 4,
+          launch_big["scores"] + launch_small["scores"], err_s, ms2,
+          time_ms(lambda: bp.score_bits_plain(words_s, qT_s), 2), bytes2,
           valid_bits(ell_s) * B, lib_ms)
+    log("    " + geometry_line(
+        ptx, "scores", bp.score_geometry(words_s.shape[0], B,
+                                         words_s.shape[1]), ms2, bytes2))
 
     # -- phase 7: outputs -----------------------------------------------------
     for res in res_big:
@@ -537,12 +552,18 @@ def main() -> int:
     large = phase_large(torch, bp, dev, args, retriever, tok, words, rng,
                         ptx)
     lb, ls = large["launch_block"], large["launch_stream"]
-    for e in kernels:  # the launches of phase 8's two paths
-        e["launches"] += {"pack_ell": lb["pack"] + ls["pack"],
+    lx = large["launch_sweep"]
+    for e in kernels:  # the launches of phase 8's three paths
+        e["launches"] += {"pack_ell": lb["pack"] + lx["pack"] + ls["pack"],
+                          "bitpack_scores": lx["scores"],
                           "bucketed_keys": ls["bucketed"]}.get(e["name"], 0)
         if e["name"] == "bucketed_keys":  # at the stream tier's own shape
             e.update(block_b8_ms=large["b8_ms"],
                      block_b8_bound_ms=large["b8_bound_ms"])
+        if e["name"] == "bitpack_scores":  # at the exact sweep's own shape
+            e.update({f"block_{k}": large["scores"][k] for k in
+                      ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "max_abs_err")})
     entry("int8_bucketed_keys", "int8_bucketed.cu", 512,
           lb["int8_bucketed"], 0, large["ms"], large["plain_ms"],
           large["nbytes"], large["ops"], None, peak=H100_INT8_OPS)
@@ -577,17 +598,18 @@ def recall_by_threshold(torch, q_emb, ids, ref_scores, cols, nnz, v):
     return float(np.mean(got >= kth - 1e-3 * np.maximum(kth, 1.0)))
 
 
-def profile_first_stage(torch, idx, q_emb) -> None:
-    """Where one block-tier first stage spends the card's time:
-    ``torch.profiler`` device time by kernel, the share of the host clock
-    in which the card was busy, and kernel #4's share of the busy time."""
+def profile_by_kernel(torch, label: str, fn, parts: dict) -> None:
+    """Where one run of ``fn`` spends the card's time: ``torch.profiler``
+    device time by kernel, the share of the host clock in which the card
+    was busy, and the share of the busy time of each of ``parts`` (name ->
+    regular expression searched in the kernel's name, case ignored)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        idx.search(q_emb, k=K)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # the device's own events (kernels, copies); a CPU op's device time
@@ -595,29 +617,72 @@ def profile_first_stage(torch, idx, q_emb) -> None:
     rows = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")
             and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
     if not rows:
-        log("  profile: the profiler saw no device time (not measured)")
+        log(f"  profile of one {label}: the profiler saw no device time "
+            "(not measured)")
         return
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
     rows.sort(key=lambda e: -e.self_device_time_total)
-    log(f"  profile of one block-tier first stage: wall {wall * 1e3:.1f} "
-        f"ms, device busy {busy * 1e3:.1f} ms ({busy / wall:.1%}); by "
-        "kernel: " + "; ".join(
+    log(f"  profile of one {label}: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms ({busy / wall:.1%}); by kernel: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
             f"x{e.count}" for e in rows[:6]))
-    k4 = sum(e.self_device_time_total for e in rows
-             if e.key.startswith("int8_bucketed")) / 1e6
-    log(f"  kernel #4 in that profile: {k4 * 1e3:.1f} ms, {k4 / busy:.1%} "
-        "of the busy time")
+    for name, pat in parts.items():
+        hit = [e for e in rows if re.search(pat, e.key, re.IGNORECASE)]
+        secs = sum(e.self_device_time_total for e in hit) / 1e6
+        log(f"  {name} in that profile: {secs * 1e3:.1f} ms "
+            f"x{sum(e.count for e in hit)}, {secs / busy:.1%} of the busy "
+            "time")
+
+
+def scores_at_block(torch, bp, blk, qT, dyT, rows: int, v: int,
+                    n_bits: int) -> dict:
+    """Kernel #2 on one packed block ``blk`` ([n_pad, W], its first
+    ``rows`` rows valid, ``v`` columns, ``n_bits`` set bits): bit-identical
+    to its plain version under the dyadic operand ``dyT``; under the query
+    operand ``qT`` within f32 rounding of it and, spliced and folded, equal
+    to kernel #3's keys; timed under ``qT`` beside its bound, its plain
+    version and the library yardstick (a bf16 matmul over the dense 0/1
+    rows, 65,536 rows at a time, so the dense operand stays ~4 GB)."""
+    require(torch.equal(bp.score_bits(blk, dyT),
+                        bp.score_bits_plain(blk, dyT)),
+            "scores kernel != plain at the block shape (dyadic)")
+    got, want = bp.score_bits(blk, qT), bp.score_bits_plain(blk, qT)
+    err = float((got - want).abs().max())
+    require(err <= 1e-5 * max(float(want.abs().max()), 1.0),
+            f"scores kernel differs from plain by {err} at the block shape")
+    require(torch.equal(bp.splice_keys(got, rows, bp.BUCKET),
+                        bp.bucket_keys(blk, qT, rows, bp.BUCKET)),
+            "scores kernel, spliced and folded, != bucketed kernel at the "
+            "block shape")
+    ms = time_ms(lambda: bp.score_bits(blk, qT), 20)
+    plain_ms = time_ms(lambda: bp.score_bits_plain(blk, qT), 1)
+    q_bf = qT[:v].T.contiguous()
+    library_ms = 0.0
+    for r0 in range(0, rows, SMALL_ROWS):
+        dense = bp._unpack_rows(blk[r0:min(r0 + SMALL_ROWS, rows)])[:, :v] \
+            .to(torch.bfloat16)
+        library_ms += time_ms(lambda: torch.matmul(q_bf, dense.T), 3)
+        del dense
+    nbytes = blk.numel() * 4 + qT.numel() * 2 + got.numel() * 4
+    bound_ms = max(nbytes / H100_BYTES_PER_S, n_bits * B / H100_F32_FLOPS) \
+        * 1e3
+    log(f"  kernel #2 on the same block: bit-identical to plain (dyadic), "
+        f"max_abs_err {err} (query), spliced == kernel #3's keys; "
+        f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms, "
+        f"library {library_ms:.3f} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, max_abs_err=err, nbytes=nbytes)
 
 
 def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
                 ptx) -> dict:
     """Phase 8: ``--wiki-rows`` rows through the block tier (Retriever,
-    auto mode) and the stream tier, held against exact blockwise scores;
-    kernels #4 and #3 (buckets 16 and 8) on one full block. Returns the
-    launch counts of both paths, kernel #4's measurements and kernel #3's
-    at bucket 8."""
+    auto mode) and the stream tier, held against the exact blockwise
+    sweep; kernels #4, #3 (buckets 16 and 8) and #2 on one full block.
+    Returns the launch counts of the three paths (block tier, exact sweep,
+    stream tier), kernel #4's measurements, kernel #3's at bucket 8 and
+    kernel #2's at the block."""
     from vsearch_tpu_torch.index import BoTIndex
     from vsearch_tpu_torch.index.bot_build import build_bot_ell
     from vsearch_tpu_torch.ops.ell import ELLMatrix, widen_cols
@@ -686,27 +751,46 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
             and launch_block["pack"] >= need,
             f"block tier skipped kernels: {launch_block}, need {need}")
 
-    # -- first stages against exact blockwise scores (kernel #2) --------------
+    # -- the exact blockwise sweep (kernel #2), the tiers' recall reference --
     q_embs = [retriever.process_query(qtexts[i * B:(i + 1) * B])
               for i in range(min(2, args.batches))]
-    refs, firsts = [], []
-    for i, qe in enumerate(q_embs):
-        q = torch.from_numpy(qe).to(dev)
+
+    def exact_sweep(qe):
+        return bp.bitpack_blockwise_topk(
+            torch.from_numpy(qe).to(dev), cols_b, nnz_b, v, K,
+            block_rows=idx.stream_block_rows, selection="exact")
+
+    torch.cuda.synchronize()
+    bp.reset_launch_counts()
+    refs, sweep_ms = [], []
+    for qe in q_embs:
         t0 = time.perf_counter()
-        r_ids, r_s = bp.bitpack_blockwise_topk(
-            q, cols_b, nnz_b, v, K, block_rows=idx.stream_block_rows,
-            selection="exact")
-        refs.append(r_s.cpu().numpy())
-        t1 = time.perf_counter()
+        refs.append(exact_sweep(qe)[1].cpu().numpy())
+        sweep_ms.append((time.perf_counter() - t0) * 1e3)
+    launch_sweep = dict(bp.LAUNCHES)
+    log("  exact blockwise sweep: " + ", ".join(
+        f"batch {i} {t:.1f} ms" for i, t in enumerate(sweep_ms))
+        + f"; launches {launch_sweep}")
+    need = n_blocks * len(q_embs)
+    require(launch_sweep["scores"] >= need and launch_sweep["pack"] >= need,
+            f"exact sweep skipped kernels: {launch_sweep}, need {need}")
+    firsts = []
+    for i, qe in enumerate(q_embs):
+        t0 = time.perf_counter()
         firsts.append(idx.search(qe, k=K))
-        t2 = time.perf_counter()
-        rec = recall_by_threshold(torch, qe, firsts[-1].ids, refs[-1],
+        secs = time.perf_counter() - t0
+        rec = recall_by_threshold(torch, qe, firsts[-1].ids, refs[i],
                                   cols_h, nnz_h, v)
-        log(f"  batch {i}: block-tier first stage {(t2 - t1) * 1e3:.1f} ms, "
-            f"exact blockwise {(t1 - t0) * 1e3:.1f} ms; recall vs exact "
-            f"{rec:.4f}")
+        log(f"  batch {i}: block-tier first stage {secs * 1e3:.1f} ms; "
+            f"recall vs exact {rec:.4f}")
         require(rec >= 0.99, f"block tier recall {rec}")
-    profile_first_stage(torch, idx, q_embs[0])
+    profile_by_kernel(torch, "block-tier first stage",
+                      lambda: idx.search(q_embs[0], k=K),
+                      {"kernel #4": r"^int8_bucketed_kernel"})
+    profile_by_kernel(torch, "exact blockwise sweep",
+                      lambda: exact_sweep(q_embs[0]),
+                      {"kernel #2": r"^scores_kernel", "pack": r"pack_kernel",
+                       "top_k (sort)": r"sort"})
     first = firsts[0]
     pairs = [(qi, j) for qi in range(5) for j in (0,)]
     for qi, j in pairs:
@@ -753,8 +837,9 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
         ops=int(nnz_b[:rows].sum()) * B)
     log(f"  kernel #4 on one {rows}-row block, B={B}: bit-identical to "
         f"plain, {out['ms']:.3f} ms")
-    log("    " + fold_line(bp, ptx, "int8_bucketed", n_pad, bp.BLOCK_BUCKET,
-                           w, out["ms"], out["nbytes"]))
+    log("    " + geometry_line(
+        ptx, "int8_bucketed", bp.fold_geometry(n_pad, bp.BLOCK_BUCKET, B, w),
+        out["ms"], out["nbytes"]))
     dyT = torch.from_numpy((rng.integers(0, 129, size=(vp, B)) / 16.0)
                            .astype(np.float32)).to(dev)
     dyT[v:] = 0
@@ -773,11 +858,18 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
         log(f"  kernel #3 at bucket {bucket}, same block, dyadic weights: "
             f"bit-identical, {ms:.3f} ms (plain {plain:.3f} ms, bound "
             f"{bound:.3f} ms)")
-        log("    " + fold_line(bp, ptx, "bucketed", n_pad, bucket, w, ms,
-                               nbytes))
+        log("    " + geometry_line(
+            ptx, "bucketed", bp.fold_geometry(n_pad, bucket, B, w), ms,
+            nbytes))
         if bucket == bp.BUCKET:
             out.update(b8_ms=ms, b8_bound_ms=bound)
-    del blk, q8T, keys_k, want4, dyT, keys
+    qT = bp._prepare_bf16(torch.from_numpy(q_embs[0]).to(dev), vp)
+    out["scores"] = scores_at_block(torch, bp, blk, qT, dyT, rows, v,
+                                    int(nnz_b[:rows].sum()))
+    log("    " + geometry_line(ptx, "scores", bp.score_geometry(n_pad, B, w),
+                               out["scores"]["ms"],
+                               out["scores"]["nbytes"]))
+    del blk, q8T, keys_k, want4, dyT, keys, qT
 
     # -- the stream tier over the same rows on the host -----------------------
     sidx = BoTIndex(search_mode="stream", device=dev)
@@ -811,7 +903,8 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
         "peak RSS "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} "
         "GiB")
-    out.update(launch_block=launch_block, launch_stream=launch_stream)
+    out.update(launch_block=launch_block, launch_sweep=launch_sweep,
+               launch_stream=launch_stream)
     return out
 
 

@@ -134,3 +134,30 @@ def test_fold_kernels_bit_identical(fold_case, b, bucket):
     torch.cuda.synchronize()
     assert bp.LAUNCHES["int8_bucketed"] == before["int8_bucketed"] + 1
     assert torch.equal(got, bp.int8_bucket_keys_plain(words, q8T, n, bucket))
+
+
+@pytest.mark.parametrize("b", [1, 7, 32, 45])
+def test_scores_share_the_fold_order(fold_case, b):
+    """Kernel #2 on the fold kernels' rows (the odd row count included):
+    equal to its plain version under dyadic weights; under random bf16
+    weights its scores, spliced and folded as ``bucket_keys_plain`` does,
+    equal kernel #3's keys bit for bit, so the two sum in one order."""
+    words, n, v, rng = fold_case
+    vp = words.shape[1] * 32
+    dy = torch.from_numpy((rng.integers(0, 129, size=(vp, b)) / 16.0)
+                          .astype(np.float32)).to(words.device)
+    dy[v:] = 0
+    qT = dy.to(torch.bfloat16)
+    before = bp.LAUNCHES["scores"]
+    got = bp.score_bits(words, qT)
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES["scores"] == before + 1
+    assert torch.equal(got, bp.score_bits_plain(words, qT))
+    assert torch.equal(bp.score_bits(words[:n], qT), got[:n])
+    qr = torch.from_numpy(rng.normal(size=(vp, b)).astype(np.float32))
+    qr[v:] = 0
+    qT = qr.to(words.device, torch.bfloat16)
+    scores = bp.score_bits(words, qT)
+    for bucket in (8, 16):
+        assert torch.equal(bp.splice_keys(scores, n, bucket),
+                           bp.bucket_keys(words, qT, n, bucket))

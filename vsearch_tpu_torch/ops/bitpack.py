@@ -189,8 +189,18 @@ def _check_fold(name: str, n_pad: int, bucket: int) -> int:
     return kb
 
 
-# -- launch geometry of the fold kernels (#3, #4; csrc/bitrow.cuh) -----------
-FOLD_WARPS = 8  # warps a CTA, one key slot a warp (kFoldWarps in bitrow.cuh)
+# -- launch geometry of kernels #2-#4 (csrc/bitrow.cuh) ---------------------
+CTA_WARPS = 8  # warps a CTA of kernels #2-#4 (kWarps in bitrow.cuh)
+
+
+def _query_tiles(name: str, b: int, num_words: int) -> int:
+    """Query tiles of 32 for ``b`` queries, after checking that the query
+    operand's byte offsets (``2 * v * b_pad``, int32 in the kernels) fit."""
+    b_pad = _round_up(max(b, 1), 32)
+    if num_words * 32 * b_pad * 2 >= 2 ** 31:
+        raise ValueError(f"{name}: the query operand's int32 byte offsets "
+                         "would overflow")
+    return b_pad // 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,7 +212,7 @@ class FoldGeometry:
 
     kb: int
     grid: Tuple[int, int]
-    warps: int = FOLD_WARPS
+    warps: int = CTA_WARPS
 
     @property
     def total_warps(self) -> int:
@@ -218,16 +228,41 @@ def fold_geometry(n_pad: int, bucket: int, b: int, num_words: int
     """The launch geometry of kernel #3 or #4 over ``n_pad`` rows of
     ``num_words`` words folded by ``bucket`` for ``b`` queries."""
     kb = _check_fold("fold_geometry", n_pad, bucket)
-    if num_words * 32 * _round_up(max(b, 1), 32) * 2 >= 2 ** 31:
-        raise ValueError("fold_geometry: the query operand's int32 byte "
-                         "offsets would overflow")
-    grid_x = (n_pad // ROW_BLOCK) * (kb // FOLD_WARPS)
-    return FoldGeometry(kb=kb, grid=(grid_x, _round_up(max(b, 1), 32) // 32))
+    tiles = _query_tiles("fold_geometry", b, num_words)
+    grid_x = (n_pad // ROW_BLOCK) * (kb // CTA_WARPS)
+    return FoldGeometry(kb=kb, grid=(grid_x, tiles))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoreGeometry:
+    """How kernel #2 launches: warp w of CTA x along ``grid[0]`` scores
+    the row pair ``2 * (x * warps + w)`` and the next (``scores_kernel``
+    in scores.cu; pairs past the last row do nothing); ``grid[1]`` tiles
+    the queries by 32."""
+
+    grid: Tuple[int, int]
+    warps: int = CTA_WARPS
+
+    @property
+    def total_warps(self) -> int:
+        return self.grid[0] * self.grid[1] * self.warps
+
+    def c_args(self) -> Tuple[int]:
+        """(grid_x,), as the C entry point takes it."""
+        return (self.grid[0],)
+
+
+def score_geometry(n_pad: int, b: int, num_words: int) -> ScoreGeometry:
+    """The launch geometry of kernel #2 over ``n_pad`` rows of
+    ``num_words`` words for ``b`` queries: one warp a pair of rows."""
+    tiles = _query_tiles("score_geometry", b, num_words)
+    pairs = (n_pad + 1) // 2
+    return ScoreGeometry(grid=(-(-pairs // CTA_WARPS), tiles))
 
 
 def _check_rows(name: str, words: torch.Tensor, qp: torch.Tensor) -> None:
-    """The fold kernels read rows in 512-byte chunks of 16-byte loads,
-    and the query operand 4 bytes at a time."""
+    """Kernels #2-#4 read rows in 512-byte chunks of 16-byte loads, and
+    the query operand 4 bytes at a time."""
     if words.shape[1] % LANES or words.data_ptr() % 16 or qp.data_ptr() % 16:
         raise ValueError(f"{name}: rows of {words.shape[1]} words must be "
                          f"a multiple of {LANES} words, and rows and "
@@ -255,21 +290,31 @@ def score_bits(words: torch.Tensor, qT: torch.Tensor) -> torch.Tensor:
     _check_queries("score_bits", words, qT)
     n_pad, w = words.shape
     b = qT.shape[1]
+    geom = score_geometry(n_pad, b, w)
     qp = _pad_queries(qT)
+    _check_rows("score_bits", words, qp)
     out = torch.empty((n_pad, b), dtype=torch.float32, device=words.device)
     return _launch("scores", out, words.data_ptr(), qp.data_ptr(),
-                   out.data_ptr(), n_pad, w, b, qp.shape[1])
+                   out.data_ptr(), n_pad, w, b, qp.shape[1], *geom.c_args())
 
 
 # -- kernel #3: fused score + bucketed keys -----------------------------------
 def bucket_keys_plain(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
                       bucket: int = BUCKET) -> torch.Tensor:
     """Plain PyTorch keys: [N_pad / bucket, B] int32 (see kernel #3)."""
-    n_pad = words.shape[0]
-    scores = score_bits_plain(words, qT).clamp_min(0.0)
-    local = (torch.arange(n_pad, device=words.device, dtype=torch.int32)
+    return splice_keys(score_bits_plain(words, qT), num_rows, bucket)
+
+
+def splice_keys(scores: torch.Tensor, num_rows: int, bucket: int
+                ) -> torch.Tensor:
+    """Kernel #3's keys from row scores [N_pad, B] f32: each score
+    spliced with its local row id, ``(bits(max(s, 0)) & ~1023) | (r %
+    1024)``, then folded by ``bucket`` (``_fold_keys``)."""
+    n_pad = scores.shape[0]
+    local = (torch.arange(n_pad, device=scores.device, dtype=torch.int32)
              % ROW_BLOCK)[:, None]
-    keys = (scores.view(torch.int32) & ~(ROW_BLOCK - 1)) | local
+    keys = (scores.clamp_min(0.0).view(torch.int32)
+            & ~(ROW_BLOCK - 1)) | local
     return _fold_keys(keys, num_rows, bucket)
 
 

@@ -1,9 +1,23 @@
-// Shared device code for the bit-packed scorers (scores.cu, bucketed.cu,
+// Shared device code of the bit-packed scorers: the exact scorer (#2,
+// scores.cu) and the two fold kernels (#3 bucketed.cu, #4
 // int8_bucketed.cu).
 //
 // Packed layout (the JAX package's, vsearch_tpu/ops/bitpack.py): vocab id
 // v lives in word (v / 4096) * 128 + v % 128, bit (v % 4096) / 128, so a
 // row of V' = 29,523 columns is 1,024 uint32 words (4 KB).
+//
+// All three score a row by decode, then gather (`score_rows`). The warp
+// loads the row into registers, 2 KB at a time (one 16-byte streaming load
+// a lane per 512-byte chunk), turns its set bits into a list of
+// query-operand offsets in shared memory, then sums the operand over the
+// list with kGather loads in flight a lane, each load serving several
+// queries (QuadSum for int8, PairSum for bf16, below). The list keeps word
+// order, then bit order within a word, the order of the first port's
+// bit-by-bit walk: f32 sums are bit-identical to it, and to each other
+// across #2 and #3; int32 sums are exact. A row with more set bits than
+// the list holds is summed in chunks of the list, in the same order. (The
+// walk with one gather in flight a warp, and a ring of rows staged in
+// shared memory with cp.async, were measured slower on the H100: PERF.md.)
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,104 +31,8 @@ namespace vs {
 constexpr int kTileBits = 4096;
 constexpr int kLanes = 128;
 constexpr unsigned kFullMask = 0xffffffffu;
-// 32-word chunks loaded before any is walked: 8 coalesced 128-byte loads
-// in flight per warp keep enough bytes moving to feed device memory.
-constexpr int kUnroll = 8;
-
-// The accumulator of each operand type and the weight of one set bit
-// widened to it: f32 for the bf16 operand (kernels #2, #3), int32 for the
-// int8 one (kernel #4), whose sums are integers and so exact in any order.
-template <typename T>
-struct Accum;
-template <>
-struct Accum<__nv_bfloat16> {
-  using type = float;
-};
-template <>
-struct Accum<int8_t> {
-  using type = int;
-};
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ int widen(int8_t x) { return (int)x; }
-
-// Sum over the set bits v of one packed row of qcol[v * stride], in the
-// accumulator of T.
-//
-// The whole warp walks the same row: each lane loads every 32nd word, a
-// ballot finds the nonzero words, and each one is broadcast and walked bit
-// by bit with __ffs. Lane t reads its own query column (qcol points at
-// query t of the tile), so the warp's 32 reads for one bit are one
-// contiguous run of the [VP, B_pad] query operand (64 bytes in bf16, 32 in
-// int8), which sits in L2 (2 MB or 1 MB at B = 32). A bag-of-token row has
-// at most nnz_pad set bits, so the cost is the 4 KB row read plus ~nnz
-// short gathers.
-//
-// Summation runs in word order then bit order, not in vocab order as the
-// TPU's per-plane dots do: f32 results agree to f32 rounding, and exactly
-// when every query weight is dyadic with few significant bits; int32
-// results agree exactly.
-template <typename T>
-__device__ __forceinline__ typename Accum<T>::type row_score(
-    const uint32_t* __restrict__ row, int num_words,
-    const T* __restrict__ qcol, int stride) {
-  const int lane = threadIdx.x & 31;
-  typename Accum<T>::type acc = 0;
-  for (int base = 0; base < num_words; base += 32 * kUnroll) {
-    uint32_t w[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int idx = base + u * 32 + lane;
-      w[u] = idx < num_words ? __ldg(row + idx) : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      uint32_t nz = __ballot_sync(kFullMask, w[u] != 0u);
-      while (nz) {
-        const int src = __ffs(nz) - 1;
-        nz &= nz - 1;
-        uint32_t word = __shfl_sync(kFullMask, w[u], src);
-        const int widx = base + u * 32 + src;
-        const int vbase = (widx >> 7) * kTileBits + (widx & (kLanes - 1));
-        while (word) {
-          const int p = __ffs(word) - 1;
-          word &= word - 1;
-          acc += widen(qcol[(int64_t)(vbase + p * kLanes) * stride]);
-        }
-      }
-    }
-  }
-  return acc;
-}
-
-// ---------------------------------------------------------------------------
-// The slot fold of kernels #3 and #4: score rows, splice each score with
-// its local row id into an int32 key, and max-fold the keys of each
-// 1024-row block to kb = 1024 / bucket slots (local rows l and l' share
-// slot l % kb, the grouping of JAX's halving fold).
-//
-// Geometry (grid_x computed by the Python wrapper, `fold_geometry`): a CTA
-// of kFoldWarps warps owns kFoldWarps consecutive slots of one 1024-row
-// block, one slot a warp; CTA x serves block x / (kb / kFoldWarps). Warp w
-// folds the `bucket` rows block * 1024 + j * kb + slot (j < bucket) of its
-// slot, keeping the running max in registers: no atomics, and as many
-// warps as slots (16,384 for a 262,144-row block at bucket 16) to fill the
-// card.
-//
-// A row is scored by decode, then gather. The warp loads the row into
-// registers, 2 KB at a time (one 16-byte streaming load a lane per
-// 512-byte chunk), turns its set bits into a list of query-operand offsets
-// in shared memory, then sums the operand over the list with kGather loads
-// in flight a lane, each load serving several queries (QuadSum for int8,
-// PairSum for bf16, below). The list keeps word order, then bit order
-// within a word, the order of row_score: f32 sums are bit-identical to it
-// and int32 sums are exact. A row with more set bits than the list holds
-// is summed in chunks of the list, in the same order. (row_score's walk,
-// and a ring of rows staged in shared memory with cp.async, were measured
-// slower on the H100: PERF.md.)
 constexpr int kRowBlock = 1024;   // rows of one fold block
-constexpr int kFoldWarps = 8;     // warps a CTA (bitpack.FOLD_WARPS)
+constexpr int kWarps = 8;         // warps a CTA (bitpack.CTA_WARPS)
 constexpr int kListCap = 256;     // offsets a warp's list holds
 constexpr int kChunkWords = 128;  // one 512-byte chunk: 4 words a lane
 constexpr int kHeldChunks = 4;    // chunks a warp holds at once
@@ -292,38 +210,25 @@ __device__ __forceinline__ void decode_chunk(uint4 w, int c, int* list,
   count = end;
 }
 
-// One warp's slot: fold its rows' keys. `Splice` turns (score, local row)
-// into the key. The warp's list of kListCap offsets is split evenly
-// between the Sum's kRows rows.
-template <typename T, typename Splice>
-__device__ __forceinline__ void fold_slot(
-    const uint32_t* __restrict__ words, const T* __restrict__ qT,
-    int32_t* __restrict__ keys, long long num_rows, int num_words, int b,
-    int b_pad, int kb) {
-  __shared__ __align__(16) int lists[kFoldWarps][kListCap];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int groups = kb / kFoldWarps;
-  const int64_t block = blockIdx.x / groups;
-  const int slot = (blockIdx.x % groups) * kFoldWarps + warp;
-  const int64_t first_row = block * kRowBlock + slot;
-  const int bucket = kRowBlock / kb;
-  const int nrows =
-      first_row < num_rows
-          ? (int)min((long long)bucket, (num_rows - 1 - first_row) / kb + 1)
-          : 0;
-  int* list = lists[warp];
-  int32_t* out = keys + (block * kb + slot) * b;
-
-  using Sum =
-      typename std::conditional<sizeof(T) == 1, QuadSum, PairSum>::type;
+// The shared row scorer: one warp sums rows first + h * step (h < rows <=
+// Sum::kRows) of `words` into `sum`'s accumulators, by decode, then
+// gather. `list` is the warp's kListCap offsets in shared memory, split
+// evenly between the Sum's kRows rows; `stride` is the query operand's row
+// length (b_pad). The caller reads the sums, then resets them (Sum::fold)
+// or not (kernel #2 writes them once).
+template <typename Sum>
+__device__ __forceinline__ void score_rows(Sum& sum,
+                                           const uint32_t* __restrict__ words,
+                                           int64_t first, int64_t step,
+                                           int rows, int num_words, int* list,
+                                           int stride) {
   constexpr int kR = Sum::kRows;
   constexpr int cap = kListCap / kR;  // entries of one row's list
-  Sum sum(qT + blockIdx.y * 32);
+  const int lane = threadIdx.x & 31;
   // decode one chunk of row h of the group into its list; a full list is
   // summed alone first (the other rows' halves add nothing)
   auto decode = [&](uint4 w, int c, int h, int& count) {
-    decode_chunk(w, c, list + h * cap, cap, count, b_pad, [&](int n) {
+    decode_chunk(w, c, list + h * cap, cap, count, stride, [&](int n) {
       int only[kR];
 #pragma unroll
       for (int r = 0; r < kR; ++r) only[r] = r == h ? n : 0;
@@ -332,40 +237,87 @@ __device__ __forceinline__ void fold_slot(
   };
 
   const int row_chunks = num_words / kChunkWords;
-  for (int j0 = 0; j0 < nrows; j0 += kR) {
-    int count[kR];
+  int count[kR];
 #pragma unroll
-    for (int h = 0; h < kR; ++h) {
-      count[h] = 0;
-      if (j0 + h >= nrows) continue;  // warp-uniform
-      const uint4* row = reinterpret_cast<const uint4*>(
-          words + (first_row + (int64_t)(j0 + h) * kb) * num_words);
-      for (int c0 = 0; c0 < row_chunks; c0 += kHeldChunks) {
-        uint4 w[kHeldChunks];
+  for (int h = 0; h < kR; ++h) {
+    count[h] = 0;
+    if (h >= rows) continue;  // warp-uniform
+    const uint4* row = reinterpret_cast<const uint4*>(
+        words + (first + (int64_t)h * step) * num_words);
+    for (int c0 = 0; c0 < row_chunks; c0 += kHeldChunks) {
+      uint4 w[kHeldChunks];
 #pragma unroll
-        for (int u = 0; u < kHeldChunks; ++u)
-          w[u] = c0 + u < row_chunks
-                     ? __ldcs(row + (c0 + u) * (kChunkWords / 4) + lane)
-                     : make_uint4(0u, 0u, 0u, 0u);
+      for (int u = 0; u < kHeldChunks; ++u)
+        w[u] = c0 + u < row_chunks
+                   ? __ldcs(row + (c0 + u) * (kChunkWords / 4) + lane)
+                   : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-        for (int u = 0; u < kHeldChunks; ++u)
-          if (c0 + u < row_chunks) decode(w[u], c0 + u, h, count[h]);
-      }
+      for (int u = 0; u < kHeldChunks; ++u)
+        if (c0 + u < row_chunks) decode(w[u], c0 + u, h, count[h]);
     }
-    sum.add(list, cap, count);
-    sum.template fold<Splice>(min(kR, nrows - j0), j0 * kb + slot, kb);
+  }
+  sum.add(list, cap, count);
+}
+
+// ---------------------------------------------------------------------------
+// The slot fold of kernels #3 and #4: score rows, splice each score with
+// its local row id into an int32 key, and max-fold the keys of each
+// 1024-row block to kb = 1024 / bucket slots (local rows l and l' share
+// slot l % kb, the grouping of JAX's halving fold).
+//
+// Geometry (grid_x computed by the Python wrapper, `fold_geometry`): a CTA
+// of kWarps warps owns kWarps consecutive slots of one 1024-row block, one
+// slot a warp; CTA x serves block x / (kb / kWarps). Warp w folds the
+// `bucket` rows block * 1024 + j * kb + slot (j < bucket) of its slot,
+// kRows at a time, keeping the running max in registers: no atomics, and
+// as many warps as slots (16,384 for a 262,144-row block at bucket 16) to
+// fill the card. `Splice` turns (score, local row) into the key.
+template <typename T, typename Splice>
+__device__ __forceinline__ void fold_slot(
+    const uint32_t* __restrict__ words, const T* __restrict__ qT,
+    int32_t* __restrict__ keys, long long num_rows, int num_words, int b,
+    int b_pad, int kb) {
+  __shared__ __align__(16) int lists[kWarps][kListCap];
+  const int warp = threadIdx.x >> 5;
+  const int groups = kb / kWarps;
+  const int64_t block = blockIdx.x / groups;
+  const int slot = (blockIdx.x % groups) * kWarps + warp;
+  const int64_t first_row = block * kRowBlock + slot;
+  const int bucket = kRowBlock / kb;
+  const int nrows =
+      first_row < num_rows
+          ? (int)min((long long)bucket, (num_rows - 1 - first_row) / kb + 1)
+          : 0;
+  int32_t* out = keys + (block * kb + slot) * b;
+
+  using Sum =
+      typename std::conditional<sizeof(T) == 1, QuadSum, PairSum>::type;
+  constexpr int kR = Sum::kRows;
+  Sum sum(qT + blockIdx.y * 32);
+  for (int j0 = 0; j0 < nrows; j0 += kR) {
+    const int rows = min(kR, nrows - j0);
+    score_rows(sum, words, first_row + (int64_t)j0 * kb, kb, rows, num_words,
+               lists[warp], b_pad);
+    sum.template fold<Splice>(rows, j0 * kb + slot, kb);
   }
   sum.store(out, blockIdx.y * 32, b);
 }
 
 }  // namespace vs
 
+// `<entry>_occupancy`: the CTAs of `kernel` (kWarps warps) one SM holds at
+// once, as the CUDA runtime computes them from its registers and shared
+// memory.
+#define VS_OCCUPANCY_ENTRY(entry, kernel)                        \
+  extern "C" int entry##_occupancy(int* ctas_per_sm) {           \
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(   \
+        ctas_per_sm, kernel, vs::kWarps * 32, 0);                \
+  }
+
 // The fold kernel of one splice (unmangled, so the ptxas report and the
-// profiler name it), its C entry point, and `<entry>_occupancy`: the CTAs
-// of the kernel one SM holds at once, as the CUDA runtime computes them
-// from its registers and shared memory.
+// profiler name it), its C entry point and its occupancy entry.
 #define VS_FOLD_ENTRY(entry, kernel, T, Splice)                              \
-  extern "C" __global__ void __launch_bounds__(vs::kFoldWarps * 32) kernel(  \
+  extern "C" __global__ void __launch_bounds__(vs::kWarps * 32) kernel(      \
       const uint32_t* __restrict__ words, const T* __restrict__ qT,          \
       int32_t* __restrict__ keys, long long num_rows, int num_words, int b,  \
       int b_pad, int kb) {                                                   \
@@ -377,12 +329,9 @@ __device__ __forceinline__ void fold_slot(
                        int kb, int grid_x, void* stream) {                   \
     if (grid_x <= 0 || b <= 0) return 0;                                     \
     kernel<<<dim3((unsigned)grid_x, (unsigned)(b_pad / 32)),                 \
-             vs::kFoldWarps * 32, 0, (cudaStream_t)stream>>>(                \
+             vs::kWarps * 32, 0, (cudaStream_t)stream>>>(                    \
         (const uint32_t*)words, (const T*)qT, (int32_t*)keys, num_rows,      \
         num_words, b, b_pad, kb);                                            \
     return (int)cudaGetLastError();                                          \
   }                                                                          \
-  extern "C" int entry##_occupancy(int* ctas_per_sm) {                       \
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(               \
-        ctas_per_sm, kernel, vs::kFoldWarps * 32, 0);                        \
-  }
+  VS_OCCUPANCY_ENTRY(entry, kernel)

@@ -34,7 +34,9 @@ last_build: Dict[str, object] = {}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "pack": ("vs_pack_ell", [_P, _P, _P, _L, _L, _I, _I, _I, _P]),
-    "scores": ("vs_bitpack_scores", [_P, _P, _P, _L, _I, _I, _I, _P]),
+    # (words, qT, out, n_pad, num_words, b, b_pad, grid_x), grid_x from
+    # bitpack.score_geometry
+    "scores": ("vs_bitpack_scores", [_P, _P, _P, _L] + [_I] * 4 + [_P]),
     # (words, qT, keys, num_rows, num_words, b, b_pad, kb, grid_x), grid_x
     # from bitpack.fold_geometry
     "bucketed": ("vs_bucketed_keys", [_P, _P, _P, _L] + [_I] * 5 + [_P]),
@@ -118,10 +120,10 @@ def kernel_fn(name: str):
     return fn
 
 
-def fold_occupancy(name: str) -> int:
-    """CTAs of fold kernel ``name`` ("bucketed" or "int8_bucketed") that
-    one SM of the current device holds at once, as the CUDA runtime works
-    them out from the kernel's registers and shared memory."""
+def occupancy(name: str) -> int:
+    """CTAs of kernel ``name`` ("scores", "bucketed" or "int8_bucketed")
+    that one SM of the current device holds at once, as the CUDA runtime
+    works them out from the kernel's registers and shared memory."""
     kernel_fn(name)  # builds and loads the library
     fn = getattr(_libs[name], _SIGNATURES[name][0] + "_occupancy")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
