@@ -35,7 +35,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      and one exact sweep are profiled by kernel; kernels #4, #3 (buckets
      16 and 8: the block and stream tiers' folds) and #2 are held against
      their plain versions on one full 262,144-row block and timed there
-     with their launch geometry.
+     with their launch geometry;
+  9. alpha search at scale: ``--alpha-rows`` (2,000,000) real-valued rows
+     of 64 distinct ids (weights 0.5 + U[0, 1) in bf16) made on the card;
+     ``'auto'`` must route the ``SparseIndex`` to the binary-support proxy,
+     ``retrieve(k=100)`` runs on ``--batches`` batches (kernels #1 and #3;
+     the first search packs the support), with recall against exact
+     search; #1 and #3 held bit for bit against
+     their plain versions at this shape and timed, #3 also at 768 ids a
+     row; the fallback below k candidates (kernel #2) on 4,096 rows against
+     the same search on the CPU;
+ 10. checkpoints, CLIs and the server at BERT-base width: the phase-4
+     retriever saved and reloaded bit for bit; ``--served-rows`` passages
+     through the build and search CLIs, each result file against
+     in-process ``retrieve``, the CLI-built alpha index (up to 768 ids a
+     row) through the proxy; a beta server made by ``cli.serve`` and an
+     alpha server over phase 9's index, each under 16 concurrent clients,
+     every answer against a serial ``retrieve`` (with the largest score
+     gap and the differing ids printed), and the next request's answer
+     failing the same comparison as a control.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -59,6 +77,14 @@ H100_INT8_OPS = 1979e12  # int8, dense
 B = 32  # queries per batch, as the beta-search CLI sends them
 K = 100
 SMALL_ROWS = 1 << 16  # below BoTIndex.bucketed_threshold: exact selection
+ALPHA_ROWS = 2_000_000  # the JAX package's alpha-at-scale index (bench.py)
+ALPHA_NNZ = 64
+SERVED_ROWS = 8192  # passages of phase 10's CLI and server corpus
+# served against serial answers: on the H100 both servers' scores came
+# out bit-equal to a serial retrieve (largest gap 0.0, no id differing);
+# 1e-6 of a request's top score leaves room for f32 summation order only,
+# far below one bf16 step (~4e-3) or another request's answer
+SERVED_RTOL = 1e-6
 WIKI21M_ROWS = 21_015_324  # passages of wiki21m (docs/ARCHITECTURE.md)
 BLOCK_ROWS = 1 << 18  # BoTIndex.stream_block_rows: the tiers' block
 LAYERS = 12
@@ -303,6 +329,8 @@ def main() -> int:
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--wiki-rows", type=int, default=WIKI21M_ROWS)
+    ap.add_argument("--alpha-rows", type=int, default=ALPHA_ROWS)
+    ap.add_argument("--served-rows", type=int, default=SERVED_ROWS)
     args = ap.parse_args()
 
     import torch
@@ -544,6 +572,7 @@ def main() -> int:
                           RetrieverConfig, dev)
 
     # -- phase 8: an index larger than the card -------------------------------
+    served_texts = texts[:args.served_rows]
     del idx_big, idx_small, ell, bits, ell_s, words_s, qT, qT_s, s_k, s_p
     del dy, dyT, texts
     retriever.index = None
@@ -567,6 +596,24 @@ def main() -> int:
     entry("int8_bucketed_keys", "int8_bucketed.cu", 512,
           lb["int8_bucketed"], 0, large["ms"], large["plain_ms"],
           large["nbytes"], large["ops"], None, peak=H100_INT8_OPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phases 9 and 10: alpha at scale; checkpoints, CLIs and serving -------
+    t_910 = time.perf_counter()
+    alpha = phase_alpha(torch, bp, dev, args, retriever, queries, ptx)
+    served = phase_serving(torch, bp, dev, args, retriever, queries,
+                           served_texts, alpha["index"])
+    log(f"phases 9 and 10 took {time.perf_counter() - t_910:.1f} s")
+    for e in kernels:  # the launches of phases 9 and 10's paths
+        for counts in (alpha["launch_alpha"], alpha["launch_fallback"],
+                       *served["launches"]):
+            e["launches"] += counts[{"pack_ell": "pack",
+                                     "bitpack_scores": "scores",
+                                     "bucketed_keys": "bucketed",
+                                     "int8_bucketed_keys": "int8_bucketed"}
+                                    [e["name"]]]
+        e.update(alpha["fields"].get(e["name"], {}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -906,6 +953,520 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
     out.update(launch_block=launch_block, launch_sweep=launch_sweep,
                launch_stream=launch_stream)
     return out
+
+
+def synth_alpha_rows(torch, dev, n: int, seed: int, v: int,
+                     nnz: int = ALPHA_NNZ):
+    """``n`` real-valued rows made on the card, as the JAX package's
+    alpha-at-scale index (``bench.py``): ``nnz`` ids a row uniform over
+    ``v`` columns, but distinct within a row (a duplicate is drawn again),
+    ascending; weights 0.5 + U[0, 1) in bf16; every slot valid, no
+    sentinel padding. At ``nnz=768`` the rows have the support of
+    ``embed_sparse``'s rows at BERT width. Returns (cols [n, nnz] int32,
+    nnz [n] int32, vals [n, nnz] bf16) on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cols = torch.empty((n, nnz), dtype=torch.int32, device=dev)
+    for s in range(0, n, 1 << 20):
+        m = min(1 << 20, n - s)
+        ids = torch.randint(0, v, (m, nnz), generator=gen, device=dev)
+        while True:
+            ids = ids.sort(dim=1).values
+            dup = torch.zeros_like(ids, dtype=torch.bool)
+            dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+            if not bool(dup.any()):
+                break
+            ids = torch.where(dup, torch.randint(0, v, ids.shape,
+                                                 generator=gen, device=dev),
+                              ids)
+        cols[s:s + m] = ids.to(torch.int32)
+    vals = (0.5 + torch.rand((n, nnz), generator=gen, device=dev)
+            ).to(torch.bfloat16)
+    return cols, torch.full((n,), nnz, dtype=torch.int32, device=dev), vals
+
+
+def dyadic_operand(torch, rng, dev, vp: int, v: int, b: int = B):
+    """A [vp, b] bf16 query operand of multiples of 1/16 in [0, 8] (zero
+    past ``v``): every sum of up to 2^17 of them is exact in f32, in any
+    order, so kernels and plain versions agree bit for bit."""
+    dy = torch.from_numpy((rng.integers(0, 129, size=(vp, b)) / 16.0)
+                          .astype(np.float32)).to(dev)
+    dy[v:] = 0
+    return dy.to(torch.bfloat16)
+
+
+def keys_at(torch, bp, ptx, label: str, words, qT, dyT, rows: int,
+            n_bits: int, reps: int = 10) -> dict:
+    """Kernel #3 at bucket 8 on ``words`` (``rows`` valid rows, ``n_bits``
+    set bits): bit-identical to its plain version under the dyadic operand
+    ``dyT``, within 2^-12 of the keys' scale under the query operand
+    ``qT``; timed under ``qT`` beside its bound and its plain version,
+    with its launch geometry."""
+    require(torch.equal(bp.bucket_keys(words, dyT, rows),
+                        bp.bucket_keys_plain(words, dyT, rows)),
+            f"bucketed kernel != plain ({label}, dyadic)")
+    got = bp.bucket_keys(words, qT, rows)
+    want = bp.bucket_keys_plain(words, qT, rows)
+    dec = lambda kk: (kk & ~1023).view(torch.float32).clamp_min(0)
+    err = float((dec(got) - dec(want)).abs().max())
+    scale = float(dec(want).max())
+    require(err <= 2.0 ** -12 * scale,
+            f"bucketed keys differ by {err} ({label}, scale {scale})")
+    del want
+    ms = time_ms(lambda: bp.bucket_keys(words, qT, rows), reps)
+    plain_ms = time_ms(lambda: bp.bucket_keys_plain(words, qT, rows), 1)
+    nbytes = words.numel() * 4 + qT.numel() * 2 + got.numel() * 4
+    bound = max(nbytes / H100_BYTES_PER_S, n_bits * B / H100_F32_FLOPS) * 1e3
+    log(f"  kernel #3 ({label}): bit-identical to plain (dyadic), "
+        f"max_abs_err {err} (query); {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+        f"bound {bound:.3f} ms, {ms / bound:.2f}x)")
+    log("    " + geometry_line(
+        ptx, "bucketed", bp.fold_geometry(words.shape[0], bp.BUCKET, B,
+                                          words.shape[1]), ms, nbytes))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err)
+
+
+def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
+    """Phase 9: ``--alpha-rows`` real-valued rows through the
+    binary-support proxy, chosen by 'auto', through the Retriever; recall
+    against exact search; kernels #1 and #3 at this shape (and #3 at 768
+    ids a row); the fallback to kernel #2 on 4,096 rows against the CPU.
+    Returns the index (served in phase 10), the launch counts of the
+    proxy path and of the fallback, and the kernels' extra fields."""
+    from vsearch_tpu_torch.index import SparseIndex
+    from vsearch_tpu_torch.ops import two_stage as ts
+    from vsearch_tpu_torch.ops.ell import ELLMatrix, ell_matvec_chunked
+    from vsearch_tpu_torch.ops.search import top_k
+
+    n, v = args.alpha_rows, retriever.encoder_q.config.out_dim
+    rng = np.random.default_rng(args.seed + 9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols, nnz, vals = synth_alpha_rows(torch, dev, n, args.seed, v)
+    torch.cuda.synchronize()
+    idx = SparseIndex(device=dev)
+    idx.set_ell(ELLMatrix(cols=cols, nnz=nnz, vals=vals, num_cols=v,
+                          sentinel_padded=False))
+    ell = idx.ell
+    cand = idx.rerank_budget // ell.nnz_pad
+    log(f"phase 9 (alpha at scale): {n} rows x {ALPHA_NNZ} distinct ids "
+        f"(V'={v}, weights 0.5 + U[0, 1) bf16) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; auto -> "
+        f"{'bitproxy' if idx._use_bitproxy() else 'exact'}, candidates "
+        f"C = {idx.rerank_budget} // {ell.nnz_pad} = {cand}")
+    require(idx._use_bitproxy(), "'auto' did not route to the proxy")
+    require(idx.bitproxy is None, "set_ell kept a packed support")
+    torch.cuda.synchronize()
+    bp.reset_launch_counts()
+    results, stages = [], []
+    for i in range(args.batches):
+        # the first search packs the support itself, as a user's first
+        # request does
+        results.append(retriever.retrieve(queries[i * B:(i + 1) * B], k=K,
+                                          index=idx))
+        stages.append(dict(retriever.last_timings))
+    launch_alpha = dict(bp.LAUNCHES)
+    for i, st in enumerate(stages):
+        log(f"  batch {i}{' (packs the support)' if i == 0 else ''}: "
+            + ", ".join(f"{k} {t * 1e3:.1f} ms" for k, t in st.items()))
+    warm = stages[1:] or stages
+    total = sum(sum(st.values()) for st in warm)
+    log(f"  {B * len(warm) / total:.2f} queries/s over the {len(warm)} "
+        f"batches after the first (k={K}); launches {launch_alpha}")
+    require(idx.bitproxy is not None and launch_alpha["pack"] == 1
+            and launch_alpha["bucketed"] >= args.batches,
+            f"alpha path skipped kernels or packed twice: {launch_alpha}")
+    for res in results:
+        require(res.ids.shape == (B, K) and np.isfinite(res.scores).all()
+                and (np.diff(res.scores, axis=1) <= 1e-6).all()
+                and res.ids.min() >= 0 and res.ids.max() < n,
+                "alpha results malformed")
+
+    # -- recall of one batch against exact search over the same ELL ---------
+    q_emb = retriever.process_query(queries[:B])
+    q = torch.from_numpy(q_emb).to(dev)
+    t0 = time.perf_counter()
+    exact = ell_matvec_chunked(q, ell)
+    kth = top_k(exact, K)[0][:, K - 1:]
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    ids = torch.from_numpy(results[0].ids).to(dev)
+    got = torch.gather(exact, 1, ids)
+    recall = float((got >= kth - 1e-3 * kth.clamp_min(1.0)).float().mean())
+    serr = float((got - torch.from_numpy(results[0].scores).to(dev)).abs()
+                 .max())
+    log(f"  recall vs exact search {recall:.4f} (exact search "
+        f"{exact_s * 1e3:.1f} ms a batch); returned scores vs exact "
+        f"max_abs_err {serr}")
+    require(recall >= 0.99, f"alpha recall {recall}")
+    require(serr <= 1e-4 * float(got.abs().max()),
+            f"returned scores differ from exact by {serr}")
+    del exact, got
+
+    # -- kernels #1 and #3 at this shape ------------------------------------
+    fields = {}
+    words = idx.bitproxy.words
+    for r0 in range(0, n, BLOCK_ROWS):
+        r1 = min(r0 + BLOCK_ROWS, n)
+        require(torch.equal(words[r0:r0 + bp._round_up(r1 - r0, 1024)],
+                            bp.pack_bits_plain(cols[r0:r1], nnz[r0:r1], v)),
+                f"pack kernel != plain at rows {r0}-{r1}")
+    pack_ms = time_ms(lambda: bp.pack_bits(cols, nnz, v), 5)
+    pack_plain = time_ms(lambda: bp.pack_bits_plain(cols, nnz, v), 1)
+    pack_bytes = cols.numel() * 4 + nnz.numel() * 4 + words.numel() * 4
+    pack_bound = pack_bytes / H100_BYTES_PER_S * 1e3
+    log(f"  kernel #1 at {n} x {ALPHA_NNZ}: bit-identical to plain (in "
+        f"{BLOCK_ROWS}-row slices); {pack_ms:.3f} ms (plain {pack_plain:.3f}"
+        f" ms, bound {pack_bound:.3f} ms, "
+        f"{pack_bytes / pack_ms / 1e6:.1f} GB/s)")
+    fields["pack_ell"] = dict(alpha_ms=pack_ms, alpha_plain_ms=pack_plain,
+                              alpha_bound_ms=pack_bound)
+    vp = words.shape[1] * 32
+    qT = bp.prepare_queries(q, idx.bitproxy)
+    dyT = dyadic_operand(torch, rng, dev, vp, v)
+    n_bits = n * ALPHA_NNZ
+    k3 = keys_at(torch, bp, ptx, f"{n} rows, {ALPHA_NNZ} ids a row", words,
+                 qT, dyT, n, n_bits)
+    blk = words[:BLOCK_ROWS]
+    k3b = keys_at(torch, bp, ptx, f"{BLOCK_ROWS}-row block, {ALPHA_NNZ} ids "
+                  "a row", blk, qT, dyT, BLOCK_ROWS, BLOCK_ROWS * ALPHA_NNZ)
+    cand_ids, _ = bp.bitpack_bucketed_topk(q, idx.bitproxy, k=cand)
+    rr_ms = time_ms(lambda: ts.exact_rerank(q, ell, cand_ids, K), 10)
+    sel_ms = time_ms(lambda: bp.bitpack_bucketed_topk(q, idx.bitproxy,
+                                                      k=cand), 5)
+    log(f"  first stage split: #3 + candidate top-{cand} {sel_ms:.3f} ms, "
+        f"exact_rerank [{B}, {cand}] x {ell.nnz_pad} {rr_ms:.3f} ms")
+
+    # -- kernel #3 at 768 ids a row (embed_sparse's rows at BERT width) -----
+    c768, z768, _ = synth_alpha_rows(torch, dev, BLOCK_ROWS, args.seed + 1,
+                                     v, 768)
+    w768 = bp.pack_bits(c768, z768, v)
+    require(torch.equal(w768, bp.pack_bits_plain(c768, z768, v)),
+            "pack kernel != plain at 768 ids a row")
+    k768 = keys_at(torch, bp, ptx, f"{BLOCK_ROWS}-row block, 768 ids a row",
+                   w768, qT, dyT, BLOCK_ROWS, BLOCK_ROWS * 768)
+    del c768, z768, w768
+    fields["bucketed_keys"] = {
+        **{f"alpha_{k}": x for k, x in k3.items()},
+        **{f"alpha_block_{k}": x for k, x in k3b.items()},
+        **{f"ids768_{k}": x for k, x in k768.items()}}
+
+    # -- the fallback below k candidates: kernel #2, against the CPU --------
+    small = ELLMatrix(cols=cols[:4096].contiguous(),
+                      nnz=nnz[:4096].contiguous(),
+                      vals=vals[:4096].contiguous(), num_cols=v,
+                      sentinel_padded=False)
+    outs = []
+    for d in (dev, "cpu"):
+        sidx = SparseIndex(search_mode="bitproxy", device=d)
+        sidx.set_ell(small if d == dev else ELLMatrix(
+            cols=small.cols.cpu(), nnz=small.nnz.cpu(),
+            vals=small.vals.cpu(), num_cols=v, sentinel_padded=False))
+        if d == dev:
+            torch.cuda.synchronize()
+            bp.reset_launch_counts()
+        outs.append(sidx.search(q_emb, k=600))
+        if d == dev:
+            launch_fallback = dict(bp.LAUNCHES)
+            fb_bits = sidx.bitproxy
+    require(launch_fallback["scores"] >= 1 and launch_fallback["pack"] >= 1
+            and launch_fallback["bucketed"] == 0,
+            f"fallback skipped kernel #2: {launch_fallback}")
+    (g, c) = outs
+    require(same_topk(c.ids, c.scores, g.ids, g.scores, 1e-5),
+            "bitproxy fallback on the card != on the CPU")
+    fb_words = fb_bits.words
+    qT_s = bp.prepare_queries(q, fb_bits)
+    s_k, s_p = bp.score_bits(fb_words, qT_s), bp.score_bits_plain(fb_words,
+                                                                  qT_s)
+    fb_err = float((s_k - s_p).abs().max())
+    require(torch.equal(bp.score_bits(fb_words, dyT),
+                        bp.score_bits_plain(fb_words, dyT)),
+            "scores kernel != plain on the fallback's rows (dyadic)")
+    fb_ms = time_ms(lambda: bp.score_bits(fb_words, qT_s), 20)
+    fb_plain = time_ms(lambda: bp.score_bits_plain(fb_words, qT_s), 2)
+    fb_bytes = fb_words.numel() * 4 + qT_s.numel() * 2 + s_k.numel() * 4
+    fb_bound = max(fb_bytes / H100_BYTES_PER_S,
+                   4096 * ALPHA_NNZ * B / H100_F32_FLOPS) * 1e3
+    # library yardstick: one bf16 matmul over the same rows as dense 0/1
+    dense = bp._unpack_rows(fb_words[:4096])[:, :v].to(torch.bfloat16)
+    q_bf = q.to(torch.bfloat16)
+    fb_lib = time_ms(lambda: torch.matmul(q_bf, dense.T), 20)
+    del dense
+    log(f"  fallback (4,096 rows, k=600 > capped "
+        f"{min(idx.rerank_budget // ALPHA_NNZ, fb_words.shape[0] // 8)}): "
+        f"card == CPU (rtol 1e-5); launches {launch_fallback}; kernel #2 "
+        f"bit-identical to plain (dyadic), max_abs_err {fb_err} (query), "
+        f"{fb_ms:.4f} ms (plain {fb_plain:.3f} ms, bound {fb_bound:.4f} ms, "
+        f"library {fb_lib:.4f} ms)")
+    fields["bitpack_scores"] = dict(fallback_ms=fb_ms,
+                                    fallback_plain_ms=fb_plain,
+                                    fallback_bound_ms=fb_bound,
+                                    fallback_library_ms=fb_lib,
+                                    fallback_max_abs_err=fb_err)
+    return dict(index=idx, launch_alpha=launch_alpha,
+                launch_fallback=launch_fallback, fields=fields)
+
+
+def http(url: str, payload=None):
+    """GET (no payload) or POST a JSON payload; returns the decoded
+    answer."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def load_test(torch, bp, label: str, server, reqs, rerank: bool,
+              rtol: float) -> dict:
+    """Serve ``server`` on a thread and send it ``reqs`` (lists of
+    queries) from 16 concurrent clients, 4 requests each, ``k=100``, with
+    one /embed, /healthz and /stats alongside. Every answer is held
+    against a serial ``retrieve`` of its queries (``same_topk`` within
+    ``rtol``), and the coalescer must have made fewer device calls than
+    it got requests. Returns the launch counts of the run."""
+    import threading
+
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    service = server.service
+    try:
+        require(http(url + "/healthz") == {"status": "ok"}, "healthz")
+        calls0 = service._coalescer.device_calls
+        answers, lat, side = {}, {}, {}
+
+        def client(c):
+            for j in range(4):
+                i = c * 4 + j
+                t0 = time.perf_counter()
+                answers[i] = http(url + "/search", {
+                    "queries": reqs[i], "k": K, "rerank": rerank})
+                lat[i] = time.perf_counter() - t0
+
+        def extras():
+            side["embed"] = http(url + "/embed", {"texts": reqs[0]})
+            side["healthz"] = http(url + "/healthz")
+            side["stats"] = http(url + "/stats")
+
+        torch.cuda.synchronize()
+        bp.reset_launch_counts()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(16)] + [threading.Thread(target=extras)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = dict(bp.LAUNCHES)
+        stats = http(url + "/stats")
+    finally:
+        server.shutdown()
+        server.server_close()
+    require(len(answers) == len(reqs) and side["healthz"]["status"] == "ok"
+            and len(side["embed"]["dims"]) == len(reqs[0])
+            and "search" in side["stats"], f"{label}: lost answers")
+    calls = stats["coalesced_device_calls"] - calls0
+    require(calls < len(reqs), f"{label}: {calls} device calls for "
+            f"{len(reqs)} requests")
+    retriever = service.retriever
+    serial = [retriever.retrieve(qs, k=K, rerank=rerank) for qs in reqs]
+    got = [(np.asarray(a["ids"]), np.asarray(a["scores"], np.float32))
+           for a in (answers[i] for i in range(len(reqs)))]
+    # readings that set rtol: the largest score gap relative to the
+    # request's largest score, and the ids that differ at all
+    gap, n_diff = 0.0, 0
+    for want, (ids, scores) in zip(serial, got):
+        scale = max(float(np.abs(want.scores).max()), 1e-6)
+        gap = max(gap, float(np.abs(scores - want.scores).max()) / scale)
+        n_diff += int((ids != want.ids).sum())
+    # control: the next request's answer (other queries) must fail the
+    # same comparison, or the tolerance cannot tell answers apart
+    swapped = sum(same_topk(want.ids, want.scores, *got[(i + 1) % len(got)],
+                            rtol) for i, want in enumerate(serial))
+    log(f"  {label}: served vs serial: largest relative score gap {gap}, "
+        f"{n_diff} of {len(reqs) * len(reqs[0]) * K} ids differ; control: "
+        f"{swapped} of {len(reqs)} requests pass with the next request's "
+        f"answer (rtol {rtol})")
+    for i, (want, (ids, scores)) in enumerate(zip(serial, got)):
+        require(same_topk(want.ids, want.scores, ids, scores, rtol),
+                f"{label}: request {i} differs from a serial retrieve")
+    require(swapped == 0, f"{label}: the control passed {swapped} times")
+    ts = np.sort(np.asarray(list(lat.values())))
+    nq = sum(len(r) for r in reqs)
+    log(f"  {label}: {len(reqs)} requests of {len(reqs[0])} queries from 16 "
+        f"clients (+ /embed, /healthz, /stats) in {wall:.2f} s: "
+        f"{nq / wall:.2f} queries/s, latency p50 "
+        f"{ts[len(ts) // 2] * 1e3:.1f} ms, p99 "
+        f"{ts[min(len(ts) - 1, int(len(ts) * 0.99))] * 1e3:.1f} ms "
+        f"(slowest {', '.join(f'{x * 1e3:.1f}' for x in ts[-3:])} ms); "
+        f"{calls} coalesced device calls (their time p50 "
+        f"{stats['search']['p50_s'] * 1e3:.1f} ms, p99 "
+        f"{stats['search']['p99_s'] * 1e3:.1f} ms; /embed "
+        f"{stats['embed'].get('mean_s', 0.0) * 1e3:.1f} ms); every answer "
+        "== serial retrieve "
+        f"(rtol {rtol}); launches {launches}")
+    return launches
+
+
+def phase_serving(torch, bp, dev, args, retriever, queries, texts,
+                  alpha_index) -> dict:
+    """Phase 10: the phase-4 retriever saved and reloaded bit for bit; the
+    build and search CLIs over ``texts``; a beta server made by
+    ``cli.serve`` and an alpha server over phase 9's index under
+    concurrent load. Returns the launch counts of its paths."""
+    import shutil
+    import tempfile
+
+    from vsearch_tpu_torch.cli.build_index import (binary_token_index,
+                                                   sparse_index)
+    from vsearch_tpu_torch.cli.search import (beta_search,
+                                              search_sparse_index)
+    from vsearch_tpu_torch.cli.serve import make_parser, prepare_retriever
+    from vsearch_tpu_torch.ops.ell import ell_matvec_chunked
+    from vsearch_tpu_torch.ops.search import top_k
+    from vsearch_tpu_torch.retriever import Retriever
+    from vsearch_tpu_torch.serve import serve
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    launches = []
+    try:
+        # -- 1. checkpoint round trip ----------------------------------------
+        ckpt = f"{work}/ckpt"
+        t0 = time.perf_counter()
+        retriever.save_pretrained(ckpt)
+        t1 = time.perf_counter()
+        loaded = Retriever.from_pretrained(ckpt, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        qs = queries[:B]
+        require(np.array_equal(loaded.encoder_q.embed(qs),
+                               retriever.encoder_q.embed(qs)),
+                "reloaded query embeddings differ")
+        require(np.array_equal(loaded.encoder_p.embed(texts[:8]),
+                               retriever.encoder_p.embed(texts[:8])),
+                "reloaded passage embeddings differ")
+        log(f"phase 10 (checkpoints, CLIs, serving): save_pretrained "
+            f"{t1 - t0:.2f} s, from_pretrained onto the card {t2 - t1:.2f} "
+            "s; query and passage embeddings bit-identical")
+
+        # -- 2. the build and search CLIs ------------------------------------
+        corpus, qfile = f"{work}/corpus.jsonl", f"{work}/queries.jsonl"
+        with open(corpus, "w") as f:
+            f.writelines(json.dumps({"text": t}) + "\n" for t in texts)
+        nq = min(64, len(queries))
+        with open(qfile, "w") as f:
+            f.writelines(json.dumps({"question": q}) + "\n"
+                         for q in queries[:nq])
+        dv = ["--device", str(dev)]
+        torch.cuda.synchronize()
+        bp.reset_launch_counts()
+        t0 = time.perf_counter()
+        binary_token_index.main(["--text_file", corpus, "--save_file",
+                                 f"{work}/bot.npz", "--tokenizer", ckpt,
+                                 "--num_shift", "999", *dv])
+        t1 = time.perf_counter()
+        sparse_index.main(["--checkpoint", ckpt, "--text_file", corpus,
+                           "--save_file", f"{work}/alpha.npz", *dv])
+        t2 = time.perf_counter()
+        search_sparse_index.main(["--checkpoint", ckpt, "--query_file",
+                                  qfile, "--index_file", f"{work}/alpha.npz",
+                                  "--save_file", f"{work}/alpha.json",
+                                  "--topk", str(K), *dv])
+        t3 = time.perf_counter()
+        beta_search.main(["--checkpoint", ckpt, "--query_file", qfile,
+                          "--text_file", corpus, "--index_file",
+                          f"{work}/bot.npz", "--save_file",
+                          f"{work}/beta.json", "--topk", str(K), *dv])
+        t4 = time.perf_counter()
+        log(f"  CLIs over {len(texts)} passages, {nq} queries: "
+            f"binary_token_index {t1 - t0:.2f} s, sparse_index "
+            f"{t2 - t1:.2f} s, search_sparse_index {t3 - t2:.2f} s, "
+            f"beta_search {t4 - t3:.2f} s (each loads the checkpoint)")
+        for name, index, kind, rerank in (
+                ("alpha", "alpha", "sparse", False),
+                ("beta", "bot", "bag_of_token", True)):
+            with open(f"{work}/{name}.json") as f:
+                res = json.load(f)
+            ids = np.asarray([r["ids"] for r in res])
+            scores = np.asarray([r["scores"] for r in res], np.float32)
+            loaded.load_index(f"{work}/{index}.npz",
+                              data_file=corpus if rerank else None,
+                              index_type=kind)
+            want = [loaded.retrieve(queries[s:s + B], k=K, rerank=rerank)
+                    for s in range(0, nq, B)]
+            w_ids = np.concatenate([w.ids for w in want])
+            w_s = np.concatenate([w.scores for w in want])
+            exact = (np.array_equal(ids, w_ids)
+                     and np.array_equal(scores, w_s))
+            require(ids.shape == (nq, K) and (exact or same_topk(
+                w_ids, w_s, ids, scores, 1e-6)),
+                f"{name} CLI results differ from in-process retrieve")
+            log(f"  {name} CLI result file == in-process retrieve on the "
+                f"loaded files ({'bit-identical' if exact else 'rtol 1e-6'}"
+                f"); index {loaded.index.ell.shape}, nnz_pad "
+                f"{loaded.index.ell.nnz_pad}")
+        # the CLI-built alpha index (embed_sparse rows) through the proxy
+        aidx = loaded.load_index(f"{work}/alpha.npz", index_type="sparse",
+                                 search_mode="bitproxy")
+        res = loaded.retrieve(queries[:B], k=K)
+        q = torch.from_numpy(loaded.process_query(queries[:B])).to(dev)
+        exact = ell_matvec_chunked(q, aidx.ell)
+        kth = top_k(exact, K)[0][:, K - 1:]
+        got = torch.gather(exact, 1, torch.from_numpy(res.ids).to(dev))
+        rec = float((got >= kth - 1e-3 * kth.clamp_min(1.0)).float().mean())
+        require(torch.equal(aidx.bitproxy.words, bp.pack_bits_plain(
+            aidx.ell.cols, aidx.ell.nnz, aidx.ell.num_cols)),
+            "pack kernel != plain on the CLI-built alpha index")
+        nnz_h = aidx.ell.nnz.cpu().numpy()
+        launches.append(dict(bp.LAUNCHES))
+        log(f"  CLI-built alpha index through the proxy: rows of "
+            f"{nnz_h.mean():.1f} ids on average (max {nnz_h.max()}), "
+            f"C = {aidx.rerank_budget // aidx.ell.nnz_pad}; recall vs exact "
+            f"{rec:.4f} (not gated); pack == plain; launches of the CLI "
+            f"section {launches[-1]}")
+        require(launches[-1]["pack"] >= 2 and launches[-1]["scores"] >= 1
+                and launches[-1]["bucketed"] >= 1,
+                f"CLI section skipped kernels: {launches[-1]}")
+        del loaded, aidx, exact, got, q
+        gc.collect()
+
+        # -- 3. a beta server made by cli.serve ------------------------------
+        reqs = [queries[(2 * i) % len(queries):(2 * i) % len(queries) + 2]
+                for i in range(64)]
+        ap = make_parser()
+        t0 = time.perf_counter()
+        beta = prepare_retriever(ap.parse_args(
+            ["--checkpoint", ckpt, "--index_file", f"{work}/bot.npz",
+             "--index_type", "bag_of_token", "--data_file", corpus,
+             "--warmup", *dv]), ap)
+        log(f"  cli.serve.prepare_retriever (checkpoint, index, warm-up) "
+            f"{time.perf_counter() - t0:.2f} s")
+        launches.append(load_test(
+            torch, bp, "beta server (rerank)",
+            serve(beta, host="127.0.0.1", port=0), reqs, True, SERVED_RTOL))
+        require(launches[-1]["scores"] >= 1,
+                f"beta server skipped kernel #2: {launches[-1]}")
+        require(beta.index.index_type.value == "bag_of_token",
+                "the beta server's index is not bag-of-token")
+        del beta
+
+        # -- 4. phase 9's alpha index served in memory -----------------------
+        retriever.index = alpha_index
+        launches.append(load_test(
+            torch, bp, f"alpha server ({alpha_index.ell.shape[0]} rows)",
+            serve(retriever, host="127.0.0.1", port=0), reqs, False,
+            SERVED_RTOL))
+        require(launches[-1]["bucketed"] >= 1,
+                f"alpha server skipped kernel #3: {launches[-1]}")
+        retriever.index = None
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches)
 
 
 def check_tiny_cpu_vs_gpu(torch, tok, texts, queries, Retriever,

@@ -161,3 +161,60 @@ def test_scores_share_the_fold_order(fold_case, b):
     for bucket in (8, 16):
         assert torch.equal(bp.splice_keys(scores, n, bucket),
                            bp.bucket_keys(words, qT, n, bucket))
+
+
+@pytest.mark.parametrize("k,num_candidates,kernel", [
+    # capped = min(256, 4096 // 8, rows) = 256 >= k, and 256 * 8 <= rows:
+    # kernel #3's route
+    (10, 256, "bucketed"),
+    (600, 700, "scores"),  # capped = 4096 // 8 = 512 < k: kernel #2
+])
+def test_bitproxy_card_matches_cpu_at_768_ids(dev, k, num_candidates,
+                                              kernel):
+    """Alpha search through the binary-support proxy on rows of 768
+    distinct ids (``embed_sparse``'s top-k at BERT width, more set bits a
+    row than the kernels' decode list holds): the pack is bit-identical,
+    kernel #3's keys are bit-identical under dyadic weights, and the
+    search on the card equals the search on the CPU (ids up to f32 near
+    ties, scores within 1e-5 relative)."""
+    from vsearch_tpu_torch.ops import two_stage as ts
+    from vsearch_tpu_torch.ops.ell import ELLMatrix
+
+    rng = np.random.default_rng(9)
+    n, v, kk = 4096, 29523, 768
+    cols = np.concatenate([np.argsort(rng.random((256, v)), axis=1)[:, :kk]
+                           for _ in range(n // 256)]).astype(np.int32)
+    vals = (0.5 + rng.random((n, kk))).astype(np.float32)
+    nnz = np.full(n, kk, np.int32)
+    q = np.zeros((8, v), np.float32)
+    for i in range(8):
+        q[i, rng.choice(v, 768, replace=False)] = rng.random(768)
+    out = []
+    for d in ("cpu", dev):
+        ell = ELLMatrix.from_arrays(cols, nnz, vals, v, False, d)
+        bm = bp.pack_ell(ell)
+        before = dict(bp.LAUNCHES)
+        ids, scores = ts.binary_proxy_search(
+            torch.from_numpy(q).to(d), ell, bm, k=k,
+            num_candidates=num_candidates)
+        if d == dev:
+            torch.cuda.synchronize()
+            assert bp.LAUNCHES[kernel] == before[kernel] + 1
+        out.append((bm.words.cpu(), ids.cpu().numpy(),
+                    scores.cpu().numpy()))
+    (w_c, i_c, s_c), (w_g, i_g, s_g) = out
+    assert torch.equal(w_g, w_c)
+    np.testing.assert_allclose(s_g, s_c, rtol=1e-5, atol=0)
+    for r, j in zip(*np.nonzero(i_g != i_c)):
+        near = np.abs(s_c[r] - s_c[r, j]) <= 1e-5 * abs(s_c[r, j])
+        assert near.sum() > 1 or j == k - 1, (r, j)
+    words = w_g.to(dev)
+    dy = torch.from_numpy((rng.integers(0, 129, size=(words.shape[1] * 32,
+                                                      8)) / 16.0)
+                          .astype(np.float32)).to(dev)
+    dy[v:] = 0
+    qT = dy.to(torch.bfloat16)
+    assert torch.equal(bp.bucket_keys(words, qT, n),
+                       bp.bucket_keys_plain(words, qT, n))
+    assert torch.equal(bp.score_bits(words, qT),
+                       bp.score_bits_plain(words, qT))

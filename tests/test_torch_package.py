@@ -20,9 +20,16 @@ def test_import_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "import vsearch_tpu_torch\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(vsearch_tpu_torch.__path__, "
         "'vsearch_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        "need = {'vsearch_tpu_torch.cli.serve', "
+        "'vsearch_tpu_torch.cli.build_index.sparse_index', "
+        "'vsearch_tpu_torch.cli.search.beta_search', "
+        "'vsearch_tpu_torch.utils.profiling', 'vsearch_tpu_torch.serve'}\n"
+        "assert need <= names, need - names\n"
         "from vsearch_tpu_torch.retriever import Retriever\n"
         "bad = [m for m in sys.modules if m == 'vsearch_tpu' "
         "or m.startswith('vsearch_tpu.')]\n"
@@ -100,3 +107,80 @@ def test_every_kernel_has_a_counter_and_a_plain_twin():
                 assert callable(getattr(bitpack, f"{fn.name}_plain"))
     assert set(launched) == set(cuda_build.SOURCES) == \
         set(bitpack.LAUNCHES), launched
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    from tests.helpers import make_tokenizer
+    from vsearch_tpu_torch.retriever import Retriever, RetrieverConfig
+
+    tok = make_tokenizer()
+    enc = {"type": "vdr", "max_len": 16, "topk": 8, "shift_vocab_num": 5,
+           "vocab_size": tok.vocab_size, "hidden_size": 32,
+           "num_hidden_layers": 1, "num_attention_heads": 2,
+           "intermediate_size": 64}
+    d = tmp_path_factory.mktemp("ckpt")
+    Retriever(RetrieverConfig(encoder_q=enc, encoder_p=enc,
+                              shared_encoder=True), tokenizer=tok,
+              device="cpu").save_pretrained(str(d / "ckpt"))
+    (d / "corpus.jsonl").write_text('{"text": "green tea"}\n')
+    (d / "q.jsonl").write_text('{"question": "tea"}\n')
+    return d
+
+
+@pytest.mark.parametrize("entry", [
+    "from_pretrained", "serve_cli", "binary_token_index", "sparse_index",
+    "dense_index", "search_sparse_index", "search_dense_index",
+    "beta_search", "convert_checkpoint", "trace", "device_memory_stats"])
+def test_new_entry_points_raise_without_cuda(checkpoint, entry):
+    """The checkpoint loader, every CLI of ``cli/`` (no ``--device``) and
+    the device readers of ``utils/`` raise without CUDA."""
+    import importlib
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    d = checkpoint
+    ck = ["--checkpoint", str(d / "ckpt")]
+    out = str(d / "out.npz")
+    argv = {
+        "binary_token_index": ["--text_file", str(d / "corpus.jsonl"),
+                               "--save_file", out, "--num_shift", "5",
+                               "--tokenizer", str(d / "ckpt")],
+        "sparse_index": ck + ["--text_file", str(d / "corpus.jsonl"),
+                              "--save_file", out],
+        "search_sparse_index": ck + ["--query_file", str(d / "q.jsonl"),
+                                     "--index_file", out,
+                                     "--save_file", out],
+        "beta_search": ck + ["--query_file", str(d / "q.jsonl"),
+                             "--text_file", str(d / "corpus.jsonl"),
+                             "--index_file", out, "--save_file", out],
+        "convert_checkpoint": ["--torch_dir", str(d / "ckpt"),
+                               "--out", str(d / "conv")],
+    }
+    argv["dense_index"] = argv["sparse_index"]
+    argv["search_dense_index"] = argv["search_sparse_index"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "from_pretrained":
+            from vsearch_tpu_torch.retriever import Retriever
+            Retriever.from_pretrained(str(d / "ckpt"))
+        elif entry == "serve_cli":
+            from vsearch_tpu_torch.cli.serve import (make_parser,
+                                                     prepare_retriever)
+            ap = make_parser()
+            prepare_retriever(ap.parse_args(ck), ap)
+        elif entry == "trace":
+            from vsearch_tpu_torch.utils.profiling import trace
+            with trace(str(d / "trace")):
+                pass
+        elif entry == "device_memory_stats":
+            from vsearch_tpu_torch.utils.profiling import \
+                device_memory_stats
+            device_memory_stats()
+        else:
+            pkg = ("vsearch_tpu_torch.cli" if entry == "convert_checkpoint"
+                   else "vsearch_tpu_torch.cli.build_index"
+                   if entry.endswith("_index") and "search" not in entry
+                   else "vsearch_tpu_torch.cli.search")
+            importlib.import_module(f"{pkg}.{entry}").main(argv[entry])

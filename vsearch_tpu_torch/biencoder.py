@@ -1,15 +1,32 @@
 """Bi-encoder: a query encoder + a passage encoder behind one config
-(counterpart of ``vsearch_tpu/biencoder.py``; checkpoint save/load comes
-in a later slice, weights load through ``models.convert``)."""
+(counterpart of ``vsearch_tpu/biencoder.py``).
+
+Checkpoints are directories in the reference's HF layout, which the JAX
+package reads too (its ``_from_torch_dir``): ``config.json`` (the
+``BiEncoderConfig`` dict), ``vocab.txt`` (one token a line, the line
+number is the id) and ``pytorch_model.bin`` (a ``torch.save``d state dict,
+keys ``encoder_q.``/``encoder_p.`` + the HF ``BertModel`` names under
+``bert_model.`` and the head's ``ln.``). The JAX package's own
+checkpoints (flax msgpack) cannot be read without flax.
+"""
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import os
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from .device import resolve_device
 from .models.registry import get_encoder_classes
+
+logger = logging.getLogger(__name__)
+
+_JAX_NATIVE_CONFIG = "vsearch_tpu_config.json"
+_WEIGHTS = "pytorch_model.bin"
 
 
 def join_corpus(corpus) -> List[str]:
@@ -37,6 +54,14 @@ class BiEncoderConfig:
     encoder_p: Dict[str, Any] = dataclasses.field(default_factory=dict)
     max_len: int = 512
     shared_encoder: bool = False
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "BiEncoderConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 class BiEncoder:
@@ -94,3 +119,103 @@ class BiEncoder:
             if q_dst.get(key, 0) * p_dst.get(key, 0) != 0
         }
         return dict(sorted(inter.items(), key=lambda kv: -kv[1]))
+
+    # -- persistence -------------------------------------------------------
+    def _encoders(self):
+        yield "encoder_q", self.encoder_q
+        if not self.config.shared_encoder:
+            yield "encoder_p", self.encoder_p
+
+    def save_pretrained(self, path: str):
+        """Write an HF-layout checkpoint directory (see the module
+        docstring). Each encoder's ``compat_pad_pooling`` is written
+        explicitly, since a reader of this layout defaults it to True.
+        Weights are stored in f32, which holds bf16 weights exactly."""
+        os.makedirs(path, exist_ok=True)
+        cfg = self.config.to_dict()
+        for name, enc in (("encoder_q", self.encoder_q),
+                          ("encoder_p", self.encoder_p)):
+            cfg[name] = {k: _json_value(v) for k, v in cfg[name].items()}
+            cfg[name]["compat_pad_pooling"] = bool(
+                enc.config.compat_pad_pooling)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2)
+        vocab = getattr(self.encoder_q.tokenizer, "vocab", None)
+        if isinstance(vocab, dict):
+            # by line position: an id gap stays a blank line, so a reload
+            # gives every token its id back
+            by_id = {i: t for t, i in vocab.items()}
+            with open(os.path.join(path, "vocab.txt"), "w",
+                      encoding="utf-8") as f:
+                f.write("\n".join(by_id.get(i, "")
+                                  for i in range(max(by_id, default=-1) + 1))
+                        + "\n")
+        sd = {f"{name}.{k}": v.detach().float().cpu()
+              for name, enc in self._encoders()
+              for k, v in enc.module.state_dict().items()}
+        torch.save(sd, os.path.join(path, _WEIGHTS))
+        logger.info("saved bi-encoder to %s", path)
+
+    @classmethod
+    def from_pretrained(cls, path: str, tokenizer=None, **kwargs):
+        """Load an HF-layout checkpoint directory: one written by
+        ``save_pretrained`` or a reference checkpoint. VDR encoders whose
+        config does not say otherwise get ``compat_pad_pooling=True``, the
+        reference's pooling. ``kwargs`` go to the constructor (``device``,
+        ``seed``); weights are read on the host and then moved."""
+        cfg_file = os.path.join(path, "config.json")
+        if not os.path.isfile(cfg_file):
+            if os.path.isfile(os.path.join(path, _JAX_NATIVE_CONFIG)):
+                raise ValueError(
+                    f"{path} is a JAX-native checkpoint ({_JAX_NATIVE_CONFIG} "
+                    "+ flax msgpack, written by vsearch_tpu's "
+                    "BiEncoder.save_pretrained), which this package cannot "
+                    "read without flax. Convert it where JAX is installed: "
+                    "load it with vsearch_tpu's Retriever.from_pretrained, "
+                    "carry each encoder's params over with "
+                    "vsearch_tpu_torch.models.convert"
+                    ".vdr_state_dict_from_flax and write the HF layout "
+                    "with this package's "
+                    "save_pretrained")
+            raise FileNotFoundError(
+                f"no HF-layout checkpoint (config.json) under {path}")
+        if tokenizer is None and os.path.isfile(
+                os.path.join(path, "vocab.txt")):
+            from .tokenization import get_tokenizer
+            tokenizer = get_tokenizer(path)
+        with open(cfg_file) as f:
+            config = cls.config_class.from_dict(json.load(f))
+        for enc_cfg in (config.encoder_q, config.encoder_p):
+            if (enc_cfg.get("type", "vdr") == "vdr"
+                    and "compat_pad_pooling" not in enc_cfg):
+                enc_cfg["compat_pad_pooling"] = True
+        weights = os.path.join(path, _WEIGHTS)
+        if not os.path.isfile(weights):
+            raise FileNotFoundError(
+                f"no {_WEIGHTS} under {path} (safetensors checkpoints are "
+                "not read: the package depends on torch, numpy and scipy "
+                "only)")
+        sd = torch.load(weights, map_location="cpu", weights_only=True)
+        model = cls(config, tokenizer=tokenizer, **kwargs)
+        from .models.convert import vdr_state_dict_from_hf
+
+        for name, enc in model._encoders():
+            prefix = f"{name}." if any(
+                k.startswith(f"{name}.") for k in sd) else ""
+            sub = {k[len(prefix):]: v for k, v in sd.items()
+                   if k.startswith(prefix)} if prefix else sd
+            etype = getattr(enc.config, "type", "vdr")
+            if etype != "vdr":
+                raise NotImplementedError(
+                    f"encoder type {etype!r} is not ported yet")
+            enc.module.load_state_dict(vdr_state_dict_from_hf(
+                sub, enc.config.bert.hidden_size))
+        return model
+
+
+def _json_value(v):
+    """An encoder-config value as JSON takes it (a torch dtype by its
+    name)."""
+    if isinstance(v, torch.dtype):
+        return str(v).replace("torch.", "")
+    return v

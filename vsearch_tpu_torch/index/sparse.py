@@ -1,16 +1,18 @@
 """Sparse (ELL) and bag-of-token indexes (counterpart of
 ``vsearch_tpu/index/sparse.py``).
 
-Scoring paths: exact chunked gather for real-valued sparse indexes, and
-for binary bag-of-token indexes the bit-packed CUDA kernels at every
-size when the index lives on the card (``ops.bitpack``; fused bucketed
-selection above 131,072 rows). A bag-of-token index whose packed bits
-exceed the device budget goes to the block tier (compact ELL on the
-card, repacked block by block) or, when even that ELL would not fit, to
-the stream tier (ELL on the host, streamed through the card). The
-binary-support proxy for large real-valued indexes is not ported yet.
-On-disk formats are the JAX package's: scipy-compatible f16 CSR
-``.npz`` and the native ``.ell.npz``, readable and writable both ways.
+Scoring paths: for real-valued sparse indexes the exact chunked gather,
+and above 131,072 rows the binary-support proxy (the rows' ids packed to
+bits and scored by the CUDA kernels, then an exact rerank of the
+candidates: ``ops.two_stage.binary_proxy_search``); for binary
+bag-of-token indexes the bit-packed CUDA kernels at every size when the
+index lives on the card (``ops.bitpack``; fused bucketed selection above
+131,072 rows). A bag-of-token index whose packed bits exceed the device
+budget goes to the block tier (compact ELL on the card, repacked block by
+block) or, when even that ELL would not fit, to the stream tier (ELL on
+the host, streamed through the card). On-disk formats are the JAX
+package's: scipy-compatible f16 CSR ``.npz`` and the native ``.ell.npz``,
+readable and writable both ways.
 """
 from __future__ import annotations
 
@@ -28,11 +30,23 @@ logger = logging.getLogger(__name__)
 
 
 class SparseIndex(DenseIndex):
-    """Sparse vocab-space index over an ELLMatrix (exact search)."""
+    """Sparse vocab-space index over an ELLMatrix.
+
+    search_mode: 'auto' | 'exact' | 'bitproxy' ('auto' takes the proxy
+    above ``exact_threshold`` rows)."""
 
     index_type = IndexType.SPARSE
     _binary = False
-    _search_modes = ("auto", "exact")
+    _search_modes = ("auto", "exact", "bitproxy")
+
+    # 'auto' scores exactly up to this many rows and through the
+    # binary-support proxy + exact rerank above it
+    exact_threshold = 131072
+    # scalar gathers of the exact rerank a QUERY (C * nnz_pad), so that a
+    # query's results do not depend on how many queries share the call
+    # (the serve coalescer merges requests). 196,608 is C=1536 at nnz_pad
+    # 128, the JAX package's setting (C=3072 at nnz_pad 64)
+    rerank_budget = 196_608
 
     def __init__(self, index_file: Optional[str] = None,
                  data_file: Optional[str] = None, low_memory: bool = False,
@@ -45,17 +59,23 @@ class SparseIndex(DenseIndex):
             raise ValueError(f"search_mode={search_mode!r} supports "
                              "binary bag-of-token indexes only")
         if search_mode not in self._search_modes:
-            raise NotImplementedError(
-                f"search_mode={search_mode!r} is not ported yet "
-                f"(available: {self._search_modes})")
+            raise ValueError(
+                f"unknown search_mode={search_mode!r} for "
+                f"{type(self).__name__} (available: {self._search_modes})")
         self.shift = shift
         self.val_dtype = val_dtype
         self.search_mode = search_mode
         if selection is not None:  # else the class default applies
             self.selection = selection
         self.ell: Optional[ELLMatrix] = None
+        self._reset_derived()
         super().__init__(index_file, data_file, low_memory=low_memory,
                          device=device)
+
+    def _reset_derived(self):
+        """Drop everything derived from the ELL: a reload that kept the
+        packed support would answer from the old corpus."""
+        self.bitproxy = None  # the support's BitMatrix (bitproxy route)
 
     def _load_device(self) -> torch.device:
         """Where a freshly loaded ELL lives: the index's device, or the
@@ -130,6 +150,7 @@ class SparseIndex(DenseIndex):
 
     def set_ell(self, ell: ELLMatrix):
         self.ell = ell
+        self._reset_derived()
 
     def set_vectors(self, mat):
         """Accept a dense or scipy-sparse matrix and convert to ELL."""
@@ -149,9 +170,7 @@ class SparseIndex(DenseIndex):
 
     @vector.setter
     def vector(self, v):
-        if v is None:
-            self.ell = None
-        elif isinstance(v, ELLMatrix):
+        if v is None or isinstance(v, ELLMatrix):
             self.set_ell(v)
         else:
             self.set_vectors(v)
@@ -164,15 +183,36 @@ class SparseIndex(DenseIndex):
         return 0 if self.ell is None else self.ell.shape[0]
 
     # -- search ------------------------------------------------------------
-    def search(self, q_embs, k: int) -> SearchResults:
-        from ..ops.two_stage import exact_search
+    def _use_bitproxy(self) -> bool:
+        if self.search_mode == "bitproxy":
+            return True
+        if self.search_mode != "auto":
+            return False
+        return self.ell.shape[0] > self.exact_threshold
+
+    def search(self, q_embs, k: int,
+               num_candidates: Optional[int] = None) -> SearchResults:
+        from ..ops.two_stage import binary_proxy_search, exact_search
 
         q = self._query_tensor(q_embs, self.ell.num_cols)
-        k = min(k, self.ell.shape[0])
+        n = self.ell.shape[0]
+        k = min(k, n)
         if q.shape[0] == 0:
             return SearchResults(np.zeros((0, k), np.int64),
                                  np.zeros((0, k), np.float32))
-        return _results(*exact_search(q, self.ell, k=k))
+        if not self._use_bitproxy():
+            return _results(*exact_search(q, self.ell, k=k))
+        if num_candidates is None:
+            # the per-query budget is a cap, floored only at k
+            cap = self.rerank_budget // max(self.ell.nnz_pad, 1)
+            num_candidates = min(n, max(k, cap))
+        else:
+            num_candidates = min(n, max(num_candidates, k))
+        if self.bitproxy is None:
+            from ..ops.bitpack import pack_ell
+            self.bitproxy = pack_ell(self.ell)
+        return _results(*binary_proxy_search(
+            q, self.ell, self.bitproxy, k=k, num_candidates=num_candidates))
 
     # -- persistence -------------------------------------------------------
     def save(self, path: str, native: Optional[bool] = None):
@@ -248,17 +288,11 @@ class BoTIndex(SparseIndex):
     # collisions become measurable at small N)
     selection = "auto"
     bucketed_threshold = 131_072
-    # 'auto' mode off the card keeps the exact gather path up to here
-    exact_threshold = 131_072
-
-    def __init__(self, *args, **kwargs):
-        self._reset_derived()
-        super().__init__(*args, **kwargs)
 
     def _reset_derived(self):
-        """Drop everything derived from the ELL: a reload that kept the
-        packed bits, the block tier's device ELL or the streamer would
-        answer from the old corpus."""
+        """Also drop the packed bits, the block tier's device ELL and the
+        streamer."""
+        super()._reset_derived()
         self.bitmat = None
         self._block_ell = None
         self._streamer = None
@@ -392,11 +426,8 @@ class BoTIndex(SparseIndex):
         self.bitmat = pack_ell(self.ell)
         return self.bitmat
 
-    def set_ell(self, ell: ELLMatrix):
-        super().set_ell(ell)
-        self._reset_derived()
-
-    def search(self, q_embs, k: int) -> SearchResults:
+    def search(self, q_embs, k: int,
+               num_candidates: Optional[int] = None) -> SearchResults:
         if getattr(q_embs, "shape", (1,))[0] == 0:
             # every path has a well-defined empty answer; the kernels
             # would launch an empty grid
@@ -411,7 +442,7 @@ class BoTIndex(SparseIndex):
                 return _results(*self._block_search(q, k))
             return SearchResults(*self._get_streamer().search(q, k))
         if not self._use_bitpack():
-            return super().search(q_embs, k)
+            return super().search(q_embs, k, num_candidates=num_candidates)
         from ..ops.bitpack import bitpack_bucketed_topk, bitpack_topk_search
 
         q = self._query_tensor(q_embs, self.ell.num_cols)

@@ -1,7 +1,8 @@
 """Two-stage sparse search primitives (counterpart of
-``vsearch_tpu/ops/two_stage.py``): exact search, and the exact rerank of
-candidate rows that follows a cheaper selection. The binary-support proxy
-of that module is not ported yet."""
+``vsearch_tpu/ops/two_stage.py``): exact search, the exact rerank of
+candidate rows that follows a cheaper selection, and the binary-support
+proxy that makes that selection for large real-valued indexes (the
+support's bits scored by the bit-packed kernels of ``ops.bitpack``)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -21,6 +22,33 @@ def exact_search(q: torch.Tensor, ell: ELLMatrix, k: int,
     k = min(k, scores.shape[1])
     s, i = top_k(scores, k)
     return i, s
+
+
+def binary_proxy_search(q: torch.Tensor, ell: ELLMatrix, bitmat, k: int,
+                        num_candidates: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids, scores) [B, k] of a large real-valued sparse index in two
+    stages: the rows' binary support (``bitmat``, the ELL's ids packed by
+    kernel #1) is scored against the query and the top candidates are
+    re-scored exactly from the weighted ELL (``exact_rerank``).
+
+    Stage 1 takes the fused bucketed kernel (#3) for ``capped = min(
+    num_candidates, N_pad / BUCKET, true rows)`` candidates: the bucket
+    structure and the true row count (not the padded one) bound how many
+    distinct candidates it can give. When that is fewer than ``k``, the
+    support scores of every row (kernel #2) go through an exact top-k of
+    ``min(max(num_candidates, k), rows)`` instead."""
+    from .bitpack import BUCKET, bitpack_bucketed_topk, bitpack_scores
+
+    capped = min(num_candidates, bitmat.words.shape[0] // BUCKET,
+                 bitmat.num_rows)
+    if capped < k:
+        scores = bitpack_scores(q, bitmat)[:, : ell.shape[0]]
+        c = min(max(num_candidates, k), scores.shape[1])
+        _, cand = top_k(scores, c)
+        return exact_rerank(q, ell, cand, k)
+    cand, _ = bitpack_bucketed_topk(q, bitmat, k=capped)
+    return exact_rerank(q, ell, cand, k)
 
 
 def exact_rerank(q: torch.Tensor, ell: ELLMatrix, cand: torch.Tensor,

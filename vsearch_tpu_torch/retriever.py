@@ -2,8 +2,10 @@
 (counterpart of ``vsearch_tpu/retriever.py``).
 
 Bi-encoder + dense / sparse / bag-of-token index; alpha (parametric)
-search and beta (semi-parametric: binary first stage + on-the-fly
-rerank) search; tokenizer-only BoT index construction. Negative mining
+search (through the binary-support proxy on large sparse indexes) and
+beta (semi-parametric: binary first stage + on-the-fly rerank) search;
+tokenizer-only BoT index construction; checkpoints through the
+bi-encoder's ``save_pretrained``/``from_pretrained``. Negative mining
 for training comes with the training slice.
 """
 from __future__ import annotations
