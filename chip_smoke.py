@@ -53,7 +53,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      alpha server over phase 9's index, each under 16 concurrent clients,
      every answer against a serial ``retrieve`` (with the largest score
      gap and the differing ids printed), and the next request's answer
-     failing the same comparison as a control.
+     failing the same comparison as a control;
+ 11. (f) DPR at BERT-base width: ``cli.build_index.dense_index`` over the
+     first ``--served-rows`` passages, the rest of ``--dpr-rows``
+     (wiki21m's 21,015,324) x 768 bf16 rows made on the card, chunked
+     exact search through ``Retriever`` held against a float64 reference
+     (with a control), ``cli.search.search_dense_index`` against
+     in-process search on the CLI's file; (g) cross-modal text <-> image
+     at full width (BERT-base text encoder over 27,623 valid ids, ViT-B/32
+     in f32): ``--images`` (32,768) synthetic images made on the card
+     batch by batch (and 4 through PNG files), ``build_index("sparse")``
+     to rows of 768 ids, text -> image and image -> text retrieval, then
+     the same image index through the binary-support proxy (kernels #1
+     and #3 at V=27,623 held against their plain versions, #3 timed, its
+     recall at C=256 printed); (h) ``cli.score.eval_wiki21m`` on (f)'s
+     result file and ``cli.score.eval_beir`` on a BEIR folder with the
+     phase-4 VDR and the DPR checkpoints.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -86,6 +101,9 @@ SERVED_ROWS = 8192  # passages of phase 10's CLI and server corpus
 # far below one bf16 step (~4e-3) or another request's answer
 SERVED_RTOL = 1e-6
 WIKI21M_ROWS = 21_015_324  # passages of wiki21m (docs/ARCHITECTURE.md)
+DPR_DIM = 768  # DPR's [CLS] vectors at BERT-base width
+# phase 11's image index: the scale of Flickr30k's 31,783 images
+CROSSMODAL_IMAGES = 32_768
 BLOCK_ROWS = 1 << 18  # BoTIndex.stream_block_rows: the tiers' block
 LAYERS = 12
 # the card; a CPU rehearsal of the control flow patches this to "cpu"
@@ -176,32 +194,33 @@ def make_vocab(rng: np.random.Generator, size: int = 30522,
     return vocab
 
 
-def make_corpus(rng, words, n: int, mean_len: int = 100):
-    """``n`` passages of 80-120 words, Zipf(1) over ``words``."""
+def make_corpus(rng, words, n: int, mean_len: int = 100, spread: int = 20):
+    """``n`` passages of ``mean_len`` +- ``spread`` words (80-120 by
+    default), Zipf(1) over ``words``."""
     p = 1.0 / np.arange(1, len(words) + 1)
     cdf = np.cumsum(p / p.sum())
     texts = []
     chunk = 1 << 16
     for s in range(0, n, chunk):
         m = min(chunk, n - s)
-        idx = np.searchsorted(cdf, rng.random((m, mean_len + 20)))
+        idx = np.searchsorted(cdf, rng.random((m, mean_len + spread)))
         idx = np.minimum(idx, len(words) - 1)
-        lens = rng.integers(mean_len - 20, mean_len + 21, size=m)
+        lens = rng.integers(mean_len - spread, mean_len + spread + 1, size=m)
         for row, ln in zip(idx.tolist(), lens.tolist()):
             texts.append(" ".join([words[j] for j in row[:ln]]))
     return texts
 
 
-def make_queries(rng, texts, n: int):
+def make_queries(rng, texts, n: int, sources: bool = False):
     """Queries of 4-8 words drawn from random passages, so there are
-    hits."""
-    out = []
-    for i in rng.integers(0, len(texts), size=n):
+    hits; with ``sources`` also each query's passage id."""
+    out, src = [], rng.integers(0, len(texts), size=n)
+    for i in src:
         ws = texts[int(i)].split()
         pick = rng.choice(len(ws), size=int(rng.integers(4, 9)),
                           replace=False)
         out.append(" ".join(ws[j] for j in sorted(pick)))
-    return out
+    return (out, src) if sources else out
 
 
 def synth_bot_rows(torch, dev, n: int, seed: int, num_words: int,
@@ -331,6 +350,8 @@ def main() -> int:
     ap.add_argument("--wiki-rows", type=int, default=WIKI21M_ROWS)
     ap.add_argument("--alpha-rows", type=int, default=ALPHA_ROWS)
     ap.add_argument("--served-rows", type=int, default=SERVED_ROWS)
+    ap.add_argument("--dpr-rows", type=int, default=WIKI21M_ROWS)
+    ap.add_argument("--images", type=int, default=CROSSMODAL_IMAGES)
     args = ap.parse_args()
 
     import torch
@@ -614,6 +635,21 @@ def main() -> int:
                                      "int8_bucketed_keys": "int8_bucketed"}
                                     [e["name"]]]
         e.update(alpha["fields"].get(e["name"], {}))
+    del alpha, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 11: DPR at wiki21m size, cross-modal retrieval, scoring CLIs --
+    t_11 = time.perf_counter()
+    p11 = phase_eleven(torch, bp, dev, args, retriever, tok, words,
+                       served_texts, ptx)
+    log(f"phase 11 took {time.perf_counter() - t_11:.1f} s")
+    for e in kernels:  # the launches of phase 11's bitproxy path
+        e["launches"] += p11["launches"][{
+            "pack_ell": "pack", "bitpack_scores": "scores",
+            "bucketed_keys": "bucketed",
+            "int8_bucketed_keys": "int8_bucketed"}[e["name"]]]
+        e.update(p11["fields"].get(e["name"], {}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1497,6 +1533,515 @@ def check_tiny_cpu_vs_gpu(torch, tok, texts, queries, Retriever,
                 f"tiny beta search ({sel}) differs between CPU and GPU")
     log("  tiny f32 retriever: GPU (kernels) == CPU (plain) for exact and "
         "bucketed beta search")
+
+
+# -- phase 11 -----------------------------------------------------------------
+def host_rss_gib() -> tuple:
+    """(resident set now from /proc/self/status, nan where the kernel does
+    not say; the process's peak so far from getrusage) in GiB."""
+    rss = float("nan")
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) / 2**20
+    return rss, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def synth_dense_rows(torch, out, start: int, norms, seed: int,
+                     chunk: int = 1 << 20) -> None:
+    """Fill ``out[start:]`` ([N, D] bf16 on the card) with random
+    directions, each row scaled to a norm drawn from ``norms`` (the real
+    rows' norms), a chunk of rows at a time."""
+    gen = torch.Generator(device=out.device)
+    gen.manual_seed(seed)
+    norms = norms.to(out.device, torch.float32)
+    for s in range(start, out.shape[0], chunk):
+        m = min(chunk, out.shape[0] - s)
+        x = torch.randn((m, out.shape[1]), generator=gen, device=out.device)
+        pick = torch.randint(0, len(norms), (m,), generator=gen,
+                             device=out.device)
+        x *= (norms[pick] / torch.linalg.vector_norm(x, dim=1))[:, None]
+        out[s:s + m] = x.to(out.dtype)
+
+
+def dense_reference(torch, qb, vectors, k: int, rows: int = 1 << 18):
+    """float64 top-(k+1) of ``qb`` (bf16 queries) against ``vectors``,
+    computed chunk by chunk on the card: (ids, scores) numpy."""
+    q64 = qb.double()
+    best_s = best_i = None
+    for s in range(0, vectors.shape[0], rows):
+        sc = q64 @ vectors[s:s + rows].double().T
+        v, i = torch.topk(sc, min(k + 1, sc.shape[1]), dim=1)
+        i = i + s
+        if best_s is not None:
+            v, i = torch.cat([best_s, v], 1), torch.cat([best_i, i], 1)
+            v, pos = torch.topk(v, k + 1, dim=1)
+            i = torch.gather(i, 1, pos)
+        best_s, best_i = v, i
+    return best_i.cpu().numpy(), best_s.cpu().numpy()
+
+
+def dense_agrees(ids, scores, ref_ids, ref_scores, rtol: float = 1e-5,
+                 tie: float = 1e-6):
+    """Per query: the top-k scores within ``rtol`` of the float64 ones at
+    the same ranks, and every id equal to the reference's except where
+    the reference's gap to a neighbouring score is at most ``tie`` of the
+    top score."""
+    out = []
+    k = ids.shape[1]
+    for q in range(ids.shape[0]):
+        rs = ref_scores[q]
+        top = max(abs(rs[0]), 1e-30)
+        ok = bool(np.allclose(scores[q], rs[:k], rtol=rtol, atol=rtol * top))
+        for j in np.nonzero(ids[q] != ref_ids[q, :k])[0]:
+            gaps = [abs(rs[j] - rs[j + d]) for d in (-1, 1)
+                    if 0 <= j + d < len(rs)]
+            ok = ok and min(gaps) <= tie * top
+        out.append(ok)
+    return out
+
+
+def make_qa(rng, texts, n: int):
+    """``n`` queries of 4-8 words drawn from random passages, their source
+    passage ids, and for each an answer: one word of its source passage
+    (``has_answer`` then finds it at least there)."""
+    queries, src = make_queries(rng, texts, n, sources=True)
+    answers = [[str(rng.choice(texts[int(i)].split()))] for i in src]
+    return queries, src, answers
+
+
+def phase_dpr(torch, dev, args, tok, texts, work: str) -> dict:
+    """Phase 11 (f): DPR at BERT-base width over a wiki21m-size dense
+    index. Returns the checkpoint, the corpus file, the questions with
+    their sources and answers, and the search CLI's result file."""
+    from vsearch_tpu_torch.cli.build_index import dense_index
+    from vsearch_tpu_torch.cli.search import search_dense_index
+    from vsearch_tpu_torch.index import DenseIndex
+    from vsearch_tpu_torch.ops import search as dense_ops
+    from vsearch_tpu_torch.retriever import Retriever, RetrieverConfig
+
+    rng = np.random.default_rng(args.seed + 11)
+    n, n_real = args.dpr_rows, len(texts)
+    enc = {"type": "dpr", "model_id": "synthetic", "vocab_size": 30522,
+           "hidden_size": DPR_DIM, "num_hidden_layers": LAYERS,
+           "num_attention_heads": 12, "intermediate_size": 3072,
+           "dtype": "bfloat16"}
+    dpr = Retriever(RetrieverConfig(encoder_q=dict(enc, max_len=128),
+                                    encoder_p=dict(enc, max_len=256),
+                                    shared_encoder=False),
+                    tokenizer=tok, seed=args.seed + 5, device=dev)
+    ckpt = f"{work}/dpr_ckpt"
+    dpr.save_pretrained(ckpt)
+    corpus, qfile = f"{work}/corpus.jsonl", f"{work}/questions.jsonl"
+    with open(corpus, "w") as f:
+        f.writelines(json.dumps({"text": t}) + "\n" for t in texts)
+    questions, sources, answers = make_qa(rng, texts, B * args.batches)
+    with open(qfile, "w") as f:
+        f.writelines(json.dumps({"question": q}) + "\n" for q in questions)
+    dv = ["--device", str(dev)]
+    t0 = time.perf_counter()
+    dense_index.main(["--checkpoint", ckpt, "--text_file", corpus,
+                      "--save_file", f"{work}/dpr.npy", *dv])
+    t1 = time.perf_counter()
+    log(f"phase 11 (f) DPR, BERT-base width ({LAYERS} layers, hidden "
+        f"{DPR_DIM}, bf16 compute; query max_len 128, passage 256): "
+        f"cli.build_index.dense_index over {n_real} passages {t1 - t0:.2f} s "
+        f"({n_real / (t1 - t0):.1f} passages/s, checkpoint load included)")
+
+    # -- the whole index on the card: the CLI's rows, then synthetic rows --
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    real = DenseIndex(index_file=f"{work}/dpr.npy", device=dev).vector
+    require(tuple(real.shape) == (n_real, DPR_DIM)
+            and real.dtype == torch.bfloat16, f"CLI index {real.shape}")
+    full = torch.empty((n, DPR_DIM), dtype=torch.bfloat16, device=dev)
+    full[:n_real] = real
+    synth_dense_rows(torch, full, n_real,
+                     torch.linalg.vector_norm(real.float(), dim=1),
+                     args.seed + 12)
+    idx = DenseIndex(device=dev)
+    idx.set_vectors(full)
+    require(idx.vector is full, "set_vectors copied a device tensor")
+    del real
+    torch.cuda.synchronize()
+    log(f"  index {n} x {DPR_DIM} bf16 ({full.numel() * 2 / 1e9:.2f} GB) on "
+        f"the card in {time.perf_counter() - t0:.2f} s: rows 0-{n_real - 1} "
+        f"from the CLI's file, the rest random directions at the real rows' "
+        f"norms; product: {dense_ops.gemm_form(full[:1], full)}; chunk "
+        f"{dense_ops.dense_chunk_rows(B, DPR_DIM)} rows")
+
+    # -- 4 batches through Retriever.retrieve --------------------------------
+    results, stages = [], []
+    for i in range(args.batches):
+        results.append(dpr.retrieve(questions[i * B:(i + 1) * B], k=K,
+                                    index=idx))
+        stages.append(dict(dpr.last_timings))
+    for i, st in enumerate(stages):
+        log(f"  batch {i}: " + ", ".join(
+            f"{k} {t * 1e3:.1f} ms" for k, t in st.items()))
+    warm = stages[1:] or stages
+    total = sum(sum(st.values()) for st in warm)
+    q_emb = dpr.process_query(questions[:B])
+    qb = torch.from_numpy(q_emb).to(dev, torch.bfloat16)
+    search_ms = time_ms(lambda: dense_ops.dense_topk_search(qb, full, K), 3)
+    bound_ms = full.numel() * 2 / H100_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"  {B * len(warm) / total:.2f} queries/s over the {len(warm)} "
+        f"batches after the first (k={K}); one search {search_ms:.2f} ms "
+        f"(CUDA events), {search_ms / bound_ms:.2f}x its {bound_ms:.2f} ms "
+        f"byte bound ({full.numel() * 2 / 1e9:.2f} GB read once at 3.35 "
+        f"TB/s); card peak {peak / 2**30:.2f} GiB of {card / 2**30:.2f} GiB; "
+        "host RSS {:.2f} GiB (process peak {:.2f} GiB, since the start)"
+        .format(*host_rss_gib()))
+    require(peak < card, "the dense search overflowed the card")
+    profile_by_kernel(torch, "dense search",
+                      lambda: dense_ops.dense_topk_search(qb, full, K),
+                      {"GEMM": r"gemm|sm90|cutlass|xmma", "sort": r"sort"})
+    for res in results:
+        require(res.ids.shape == (B, K) and np.isfinite(res.scores).all()
+                and (np.diff(res.scores, axis=1) <= 0).all()
+                and res.ids.min() >= 0 and res.ids.max() < n,
+                "dense results malformed")
+
+    # -- 2 batches against a float64 reference, with a control ---------------
+    passed, control = [], []
+    t0 = time.perf_counter()
+    for i in range(min(2, args.batches)):
+        qi = torch.from_numpy(dpr.process_query(
+            questions[i * B:(i + 1) * B])).to(dev, torch.bfloat16)
+        ref_ids, ref_s = dense_reference(torch, qi, full, K)
+        res = results[i]
+        passed += dense_agrees(res.ids, res.scores, ref_ids, ref_s)
+        control += dense_agrees(np.roll(res.ids, -1, axis=0),
+                                np.roll(res.scores, -1, axis=0),
+                                ref_ids, ref_s)
+        gap = np.abs(res.scores - ref_s[:, :K]) / np.abs(ref_s[:, :1])
+        n_diff = int((res.ids != ref_ids[:, :K]).sum())
+        log(f"  batch {i} vs float64: largest score gap {gap.max():.3g} of "
+            f"the top score, {n_diff} of {B * K} ids differ; real rows in "
+            f"the top {K}: {int((res.ids < n_real).sum())} of {B * K}")
+    log(f"  float64 reference (chunk by chunk on the card) in "
+        f"{time.perf_counter() - t0:.1f} s: {sum(passed)} of {len(passed)} "
+        f"queries agree (scores rtol 1e-5, ids except ties within 1e-6 of "
+        f"the top score); control (the next query's answer): "
+        f"{sum(control)} of {len(control)} pass")
+    require(all(passed), "dense search disagrees with the float64 reference")
+    require(not any(control), "the control passed")
+    del idx, full, qb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the search CLI on the CLI-built file, against in-process ------------
+    t0 = time.perf_counter()
+    search_dense_index.main(["--checkpoint", ckpt, "--query_file", qfile,
+                             "--index_file", f"{work}/dpr.npy", "--save_file",
+                             f"{work}/dpr.json", "--topk", str(K), *dv])
+    cli_s = time.perf_counter() - t0
+    with open(f"{work}/dpr.json") as f:
+        res = json.load(f)
+    dpr.load_index(f"{work}/dpr.npy", index_type="dense")
+    want = [dpr.retrieve(questions[s:s + B], k=K)
+            for s in range(0, len(questions), B)]
+    ids = np.asarray([r["ids"] for r in res])
+    scores = np.asarray([r["scores"] for r in res], np.float32)
+    require(np.array_equal(ids, np.concatenate([w.ids for w in want]))
+            and np.array_equal(scores, np.concatenate([w.scores
+                                                       for w in want])),
+            "dense search CLI != in-process retrieve")
+    log(f"  cli.search.search_dense_index over the {n_real}-row file, "
+        f"{len(questions)} questions: {cli_s:.2f} s (checkpoint load "
+        "included); result file == in-process retrieve (bit-identical)")
+    return dict(ckpt=ckpt, corpus=corpus, result=f"{work}/dpr.json",
+                questions=questions, sources=sources, answers=answers)
+
+
+class SyntheticImages:
+    """``n`` [224, 224, 3] f32 images made on the card from ``seed`` when
+    sliced: image i always has the same pixels, whatever the slice (a
+    sequence, as an image corpus)."""
+
+    def __init__(self, torch, n: int, seed: int, dev, res: int = 224):
+        self.torch, self.n, self.seed, self.dev = torch, n, seed, dev
+        self.res = res
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, sl):
+        torch = self.torch
+        a, b, _ = sl.indices(self.n)
+        out = torch.empty((b - a, self.res, self.res, 3), device=self.dev)
+        gen = torch.Generator(device=self.dev)
+        for i in range(a, b):
+            gen.manual_seed(self.seed * 1_000_003 + i)
+            out[i - a] = torch.randn((self.res, self.res, 3), generator=gen,
+                                     device=self.dev)
+        return out
+
+
+def phase_crossmodal(torch, bp, dev, args, tok, words, ptx, work: str
+                     ) -> dict:
+    """Phase 11 (g): cross-modal retrieval at full width. Returns the
+    launch counts of the bitproxy path and the kernels' extra fields."""
+    from PIL import Image
+
+    from vsearch_tpu_torch.index import SparseIndex
+    from vsearch_tpu_torch.models.crossmodal_image import preprocess_image
+    from vsearch_tpu_torch.ops.ell import ELLMatrix
+    from vsearch_tpu_torch.retriever import Retriever, RetrieverConfig
+
+    rng = np.random.default_rng(args.seed + 13)
+    n = args.images
+    text = {"type": "vdr_crossmodal_text", "model_id": "synthetic",
+            "max_len": 128, "topk": 768, "vocab_size": 30522,
+            "hidden_size": 768, "num_hidden_layers": LAYERS,
+            "num_attention_heads": 12, "intermediate_size": 3072,
+            "dtype": "bfloat16"}
+    image = {"type": "vdr_crossmodal_image", "resolution": 224,
+             "patch_size": 32, "width": 768, "layers": LAYERS, "heads": 12,
+             "topk": 768}
+    t0 = time.perf_counter()
+    xm = Retriever(RetrieverConfig(encoder_q=text, encoder_p=image,
+                                   shared_encoder=False),
+                   tokenizer=tok, seed=args.seed + 7, device=dev)
+    v = xm.encoder_p.config.out_dim
+    require(v == xm.encoder_q.config.out_dim == 27623,
+            f"valid vocabulary {v}")
+    torch.cuda.synchronize()
+    log(f"phase 11 (g) cross-modal: BERT-base text encoder (bf16, 27,623 "
+        f"valid ids, topk 768) -> ViT-B/32 image encoder (224 px, patch 32, "
+        f"width 768, {LAYERS} layers, f32, topk 768), built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # -- 4 images through PNG files and preprocess_image ---------------------
+    paths = []
+    for i, (h, w) in enumerate([(300, 260), (224, 224), (180, 400),
+                                (512, 333)]):
+        paths.append(f"{work}/image{i}.png")
+        Image.fromarray(rng.integers(0, 256, size=(h, w, 3),
+                                     dtype=np.uint8)).save(paths[-1])
+    e_png = xm.encoder_p.embed(paths)
+    e_arr = xm.encoder_p.embed(np.stack([preprocess_image(p, 224)
+                                         for p in paths]))
+    require(e_png.shape == (4, v) and np.array_equal(e_png, e_arr)
+            and ((e_png != 0).sum(axis=1) == 768).all(),
+            "PNG images embed differently from their pixels")
+
+    # -- the image index: build_index('sparse') from dense embeddings --------
+    n_rate = min(2048, n)
+    t0 = time.perf_counter()
+    xm.encoder_p.embed(SyntheticImages(torch, n_rate, args.seed + 1, dev),
+                       batch_size=B)
+    torch.cuda.synchronize()
+    img_s = n_rate / (time.perf_counter() - t0)
+    images = SyntheticImages(torch, n, args.seed, dev)
+    t0 = time.perf_counter()
+    idx = xm.build_index(images, batch_size=B, index_type="sparse")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ell = idx.ell
+    nnz = ell.nnz.cpu().numpy()
+    log(f"  4 PNG images == their preprocessed pixels (bit-identical); "
+        f"images embedded at {img_s:.1f} images/s ({n_rate} images, B={B}, "
+        f"f32); build_index('sparse') over {n} images {build_s:.2f} s; ELL "
+        f"{tuple(ell.cols.shape)}, ids a row {nnz.min()}-{nnz.max()}, "
+        f"vals {ell.vals.dtype}; auto -> "
+        f"{'bitproxy' if idx._use_bitproxy() else 'exact'}")
+    require(type(idx) is SparseIndex and (nnz == 768).all()
+            and ell.nnz_pad == 768 and not idx._use_bitproxy(),
+            "image index is not exact rows of 768 ids")
+
+    # -- text -> image, exact ('auto' below exact_threshold) -----------------
+    captions = make_corpus(rng, words, n, mean_len=10, spread=5)
+    picks = rng.integers(0, n, size=B * args.batches)
+    queries = [captions[int(i)] for i in picks]
+    exact, stages = [], []
+    for i in range(args.batches):
+        exact.append(xm.retrieve(queries[i * B:(i + 1) * B], k=K))
+        stages.append(dict(xm.last_timings))
+    total = sum(sum(st.values()) for st in stages)
+    log(f"  text -> image ({n} images, exact): {B * args.batches / total:.2f}"
+        " queries/s; " + "; ".join(
+            f"batch {i} " + ", ".join(f"{k} {t * 1e3:.1f} ms"
+                                      for k, t in st.items())
+            for i, st in enumerate(stages)))
+    q_emb = xm.process_query(queries[:B])
+    cols_h, vals_h = ell.cols.cpu().numpy(), ell.vals.float().cpu().numpy()
+    for qi in range(5):
+        j = int(exact[0].ids[qi, 0])
+        want = float(np.dot(q_emb[qi, cols_h[j]].astype(np.float64),
+                            vals_h[j]))
+        require(np.isclose(exact[0].scores[qi, 0], want, rtol=1e-5),
+                f"text -> image score {exact[0].scores[qi, 0]} != {want}")
+    for res in exact:
+        require(res.ids.shape == (B, min(K, n))
+                and np.isfinite(res.scores).all()
+                and (np.diff(res.scores, axis=1) <= 0).all(),
+                "text -> image results malformed")
+
+    # -- image -> text over an index of the captions -------------------------
+    t0 = time.perf_counter()
+    cap_emb = xm.encoder_q.embed(captions, batch_size=128)
+    torch.cuda.synchronize()
+    cap_s = n / (time.perf_counter() - t0)
+    cidx = SparseIndex(device=dev)
+    cidx.set_ell(ELLMatrix.from_dense(cap_emb, val_dtype=np.float32,
+                                      device=dev))
+    del cap_emb
+    img_q = xm.encoder_p.embed(images[0:B * args.batches], batch_size=B)
+    t0 = time.perf_counter()
+    back = [xm.retrieve(img_q[i * B:(i + 1) * B], k=K, index=cidx)
+            for i in range(args.batches)]
+    i2t_s = time.perf_counter() - t0
+    for i, res in enumerate(back):
+        require(res.ids.shape == (B, min(K, n))
+                and np.isfinite(res.scores).all(),
+                "image -> text results malformed")
+    log(f"  image -> text over {n} captions (ELL {tuple(cidx.ell.cols.shape)}"
+        f"): captions embedded at {cap_s:.1f} captions/s; "
+        f"{args.batches} batches of {B} image queries searched in "
+        f"{i2t_s * 1e3:.1f} ms ({B * args.batches / i2t_s:.1f} queries/s)")
+    del cidx, back, img_q
+    gc.collect()
+
+    # -- the same image index through the binary-support proxy ---------------
+    idx.search_mode = "bitproxy"
+    cand = idx.rerank_budget // ell.nnz_pad
+    torch.cuda.synchronize()
+    bp.reset_launch_counts()
+    proxy, stages = [], []
+    for i in range(args.batches):
+        proxy.append(xm.retrieve(queries[i * B:(i + 1) * B], k=K))
+        stages.append(dict(xm.last_timings))
+    launches = dict(bp.LAUNCHES)
+    require(launches["pack"] == 1 and launches["bucketed"] >= args.batches,
+            f"cross-modal bitproxy skipped kernels: {launches}")
+    recall = float(np.mean([np.mean(p.scores >= e.scores[:, -1:]
+                                    - 1e-3 * np.abs(e.scores[:, -1:]))
+                            for p, e in zip(proxy, exact)]))
+    log(f"  bitproxy over the image index: C = {idx.rerank_budget} // "
+        f"{ell.nnz_pad} = {cand} candidates a query; recall vs exact "
+        f"{recall:.4f} (not gated); " + "; ".join(
+            f"batch {i} " + ", ".join(f"{k} {t * 1e3:.1f} ms"
+                                      for k, t in st.items())
+            for i, st in enumerate(stages)) + f"; launches {launches}")
+    words_bits = idx.bitproxy.words
+    require(torch.equal(words_bits, bp.pack_bits_plain(
+        ell.cols, ell.nnz, ell.num_cols)),
+        "pack kernel != plain at V=27,623")
+    pack_ms = time_ms(lambda: bp.pack_bits(ell.cols, ell.nnz, v), 10)
+    pack_plain = time_ms(lambda: bp.pack_bits_plain(ell.cols, ell.nnz, v), 2)
+    pack_bytes = (ell.cols.numel() * 4 + ell.nnz.numel() * 4
+                  + words_bits.numel() * 4)
+    pack_bound = pack_bytes / H100_BYTES_PER_S * 1e3
+    log(f"  kernel #1 at {n} x 768 ids, V={v} ({words_bits.shape[1]} words a "
+        f"row): bit-identical to plain; {pack_ms:.3f} ms (plain "
+        f"{pack_plain:.3f} ms, bound {pack_bound:.3f} ms)")
+    q = torch.from_numpy(q_emb).to(dev)
+    qT = bp.prepare_queries(q, idx.bitproxy)
+    dyT = dyadic_operand(torch, rng, dev, words_bits.shape[1] * 32, v)
+    k3 = keys_at(torch, bp, ptx, f"{n} image rows of 768 ids, V={v}",
+                 words_bits, qT, dyT, n, n * 768)
+    return dict(launches=launches, fields={
+        "pack_ell": dict(crossmodal_ms=pack_ms, crossmodal_plain_ms=pack_plain,
+                         crossmodal_bound_ms=pack_bound),
+        "bucketed_keys": {**{f"crossmodal_{k}": x for k, x in k3.items()},
+                          "crossmodal_recall_c256": recall}})
+
+
+def run_cli(main, argv) -> dict:
+    """A scoring CLI's ``main(argv)``; returns the JSON it printed last."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_scoring(torch, dev, args, retriever, texts, dpr: dict, work: str
+                  ) -> None:
+    """Phase 11 (h): ``eval_wiki21m`` on (f)'s result file; ``eval_beir``
+    on a BEIR folder over the same passages, with the phase-4 VDR and the
+    DPR checkpoints."""
+    import os
+
+    from vsearch_tpu_torch.cli.score import eval_beir, eval_wiki21m
+    from vsearch_tpu_torch.eval import qa_utils
+
+    qa = f"{work}/qa.csv"
+    with open(qa, "w") as f:
+        f.writelines(f"{q}\t{a!r}\n"
+                     for q, a in zip(dpr["questions"], dpr["answers"]))
+    t0 = time.perf_counter()
+    acc = run_cli(eval_wiki21m.main, ["--result_file", dpr["result"],
+                                      "--text_file", dpr["corpus"],
+                                      "--qa_file", qa])
+    log(f"phase 11 (h) scoring CLIs: has_answer through the "
+        f"{'regex' if qa_utils._regex is not None else 're fallback'} "
+        f"branch; eval_wiki21m on (f)'s result file "
+        f"({time.perf_counter() - t0:.2f} s): {json.dumps(acc)}")
+    vals = list(acc.values())
+    require(list(acc) == ["top1", "top5", "top10", "top20", "top100"]
+            and all(a <= b for a, b in zip(vals, vals[1:])),
+            "top-k accuracies are not non-decreasing in k")
+    beir = f"{work}/beir"
+    os.makedirs(f"{beir}/qrels", exist_ok=True)
+    with open(f"{beir}/corpus.jsonl", "w") as f:
+        f.writelines(json.dumps({"_id": str(i), "title": "", "text": t})
+                     + "\n" for i, t in enumerate(texts))
+    with open(f"{beir}/queries.jsonl", "w") as f:
+        f.writelines(json.dumps({"_id": f"q{i}", "text": q}) + "\n"
+                     for i, q in enumerate(dpr["questions"]))
+    with open(f"{beir}/qrels/test.tsv", "w") as f:
+        f.write("query-id\tcorpus-id\tscore\n")
+        f.writelines(f"q{i}\t{int(s)}\t1\n"
+                     for i, s in enumerate(dpr["sources"]))
+    vdr_ckpt = f"{work}/vdr_ckpt"
+    retriever.save_pretrained(vdr_ckpt)
+    for name, ckpt in (("VDR (phase 4)", vdr_ckpt), ("DPR (f)", dpr["ckpt"])):
+        t0 = time.perf_counter()
+        m = run_cli(eval_beir.main, [
+            "--checkpoint", ckpt, "--corpus_file", f"{beir}/corpus.jsonl",
+            "--query_file", f"{beir}/queries.jsonl", "--qrels_file",
+            f"{beir}/qrels/test.tsv", "--device", str(dev)])
+        log(f"  eval_beir, {name}, {len(texts)} passages, "
+            f"{len(dpr['questions'])} queries ({time.perf_counter() - t0:.2f}"
+            f" s): {json.dumps(m)}")
+        require(all(0.0 <= x <= 1.0 for x in m.values())
+                and m["recall@100"] >= m["recall@1"],
+                f"eval_beir metrics malformed for {name}")
+
+
+def phase_eleven(torch, bp, dev, args, retriever, tok, words, texts,
+                 ptx) -> dict:
+    """Phase 11: (f) DPR at wiki21m size, (g) cross-modal retrieval at
+    full width, (h) the scoring CLIs. Returns the launch counts of (g)'s
+    bitproxy path and the kernels' extra fields."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_11_")
+    try:
+        t0 = time.perf_counter()
+        dpr = phase_dpr(torch, dev, args, tok, texts, work)
+        log(f"  (f) took {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = phase_crossmodal(torch, bp, dev, args, tok, words, ptx, work)
+        log(f"  (g) took {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_scoring(torch, dev, args, retriever, texts, dpr, work)
+        log(f"  (h) took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -28,9 +28,20 @@ def test_import_with_jax_blocked():
         "need = {'vsearch_tpu_torch.cli.serve', "
         "'vsearch_tpu_torch.cli.build_index.sparse_index', "
         "'vsearch_tpu_torch.cli.search.beta_search', "
-        "'vsearch_tpu_torch.utils.profiling', 'vsearch_tpu_torch.serve'}\n"
+        "'vsearch_tpu_torch.utils.profiling', 'vsearch_tpu_torch.serve',\n"
+        " 'vsearch_tpu_torch.models.dpr', 'vsearch_tpu_torch.models.valid_vocab',\n"
+        " 'vsearch_tpu_torch.models.crossmodal_text',\n"
+        " 'vsearch_tpu_torch.models.crossmodal_image',\n"
+        " 'vsearch_tpu_torch.models.clip_resnet',\n"
+        " 'vsearch_tpu_torch.eval.qa_utils',\n"
+        " 'vsearch_tpu_torch.eval.retrieval_eval',\n"
+        " 'vsearch_tpu_torch.cli.score.eval_wiki21m',\n"
+        " 'vsearch_tpu_torch.cli.score.eval_beir'}\n"
         "assert need <= names, need - names\n"
         "from vsearch_tpu_torch.retriever import Retriever\n"
+        "from vsearch_tpu_torch.models.registry import get_encoder_classes\n"
+        "for t in ('dpr', 'vdr_crossmodal_text', 'vdr_crossmodal_image'):\n"
+        "    get_encoder_classes(t)\n"
         "bad = [m for m in sys.modules if m == 'vsearch_tpu' "
         "or m.startswith('vsearch_tpu.')]\n"
         "assert not bad, bad\n"
@@ -131,10 +142,11 @@ def checkpoint(tmp_path_factory):
 @pytest.mark.parametrize("entry", [
     "from_pretrained", "serve_cli", "binary_token_index", "sparse_index",
     "dense_index", "search_sparse_index", "search_dense_index",
-    "beta_search", "convert_checkpoint", "trace", "device_memory_stats"])
+    "beta_search", "convert_checkpoint", "trace", "device_memory_stats",
+    "eval_beir", "dpr", "crossmodal_text", "crossmodal_image"])
 def test_new_entry_points_raise_without_cuda(checkpoint, entry):
-    """The checkpoint loader, every CLI of ``cli/`` (no ``--device``) and
-    the device readers of ``utils/`` raise without CUDA."""
+    """The checkpoint loader, every CLI of ``cli/`` (no ``--device``), the
+    encoders and the device readers of ``utils/`` raise without CUDA."""
     import importlib
 
     import torch
@@ -158,6 +170,9 @@ def test_new_entry_points_raise_without_cuda(checkpoint, entry):
                              "--index_file", out, "--save_file", out],
         "convert_checkpoint": ["--torch_dir", str(d / "ckpt"),
                                "--out", str(d / "conv")],
+        "eval_beir": ck + ["--corpus_file", str(d / "corpus.jsonl"),
+                           "--query_file", str(d / "q.jsonl"),
+                           "--qrels_file", str(d / "q.jsonl")],
     }
     argv["dense_index"] = argv["sparse_index"]
     argv["search_dense_index"] = argv["search_sparse_index"]
@@ -170,6 +185,18 @@ def test_new_entry_points_raise_without_cuda(checkpoint, entry):
                                                      prepare_retriever)
             ap = make_parser()
             prepare_retriever(ap.parse_args(ck), ap)
+        elif entry in ("dpr", "crossmodal_text", "crossmodal_image"):
+            from tests.helpers import make_tokenizer
+            from vsearch_tpu_torch.models.registry import get_encoder_classes
+
+            cfg_cls, enc_cls = get_encoder_classes(
+                "dpr" if entry == "dpr" else f"vdr_{entry}")
+            enc_cls(cfg_cls.from_dict({"num_hidden_layers": 1, "layers": 1,
+                                       "vocab_size": 64, "hidden_size": 32,
+                                       "num_attention_heads": 2,
+                                       "intermediate_size": 64, "width": 32,
+                                       "heads": 2}),
+                    tokenizer=make_tokenizer())
         elif entry == "trace":
             from vsearch_tpu_torch.utils.profiling import trace
             with trace(str(d / "trace")):
@@ -180,6 +207,7 @@ def test_new_entry_points_raise_without_cuda(checkpoint, entry):
             device_memory_stats()
         else:
             pkg = ("vsearch_tpu_torch.cli" if entry == "convert_checkpoint"
+                   else "vsearch_tpu_torch.cli.score" if entry == "eval_beir"
                    else "vsearch_tpu_torch.cli.build_index"
                    if entry.endswith("_index") and "search" not in entry
                    else "vsearch_tpu_torch.cli.search")

@@ -48,6 +48,14 @@ def join_corpus(corpus) -> List[str]:
     return processed
 
 
+def takes_images(encoder) -> bool:
+    """Whether ``encoder`` embeds images (the cross-modal image encoder):
+    its corpus is image paths, PIL images or pixel arrays, handed to it as
+    they are. The JAX package joins every corpus as text, so there only
+    image paths pass."""
+    return getattr(encoder.config, "type", "") == "vdr_crossmodal_image"
+
+
 @dataclasses.dataclass
 class BiEncoderConfig:
     encoder_q: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -66,8 +74,10 @@ class BiEncoderConfig:
 
 class BiEncoder:
     """Holds ``encoder_q`` and ``encoder_p``, built through the registry
-    from config dicts with a ``type`` key. Weights come from ``seed``
-    (query encoder) and ``seed + 1`` (passage encoder)."""
+    from config dicts with a ``type`` key ('vdr', 'dpr',
+    'vdr_crossmodal_text', 'vdr_crossmodal_image'; the two sides may
+    differ). Weights come from ``seed`` (query encoder) and ``seed + 1``
+    (passage encoder)."""
 
     config_class = BiEncoderConfig
 
@@ -105,7 +115,9 @@ class BiEncoder:
                       max_len: Optional[int] = None,
                       **kwargs) -> np.ndarray:
         batch_size = batch_size or self.default_batch_size
-        return self.encoder_p.embed(join_corpus(corpus),
+        if not takes_images(self.encoder_p):
+            corpus = join_corpus(corpus)
+        return self.encoder_p.embed(corpus,
                                     batch_size=batch_size, max_len=max_len,
                                     activate_lexical=False, **kwargs)
 
@@ -128,16 +140,18 @@ class BiEncoder:
 
     def save_pretrained(self, path: str):
         """Write an HF-layout checkpoint directory (see the module
-        docstring). Each encoder's ``compat_pad_pooling`` is written
-        explicitly, since a reader of this layout defaults it to True.
-        Weights are stored in f32, which holds bf16 weights exactly."""
+        docstring). The ``compat_pad_pooling`` of each encoder that has one
+        (VDR, cross-modal text) is written explicitly, since a reader of
+        this layout defaults it to True. Weights are stored in f32, which
+        holds bf16 weights exactly."""
         os.makedirs(path, exist_ok=True)
         cfg = self.config.to_dict()
         for name, enc in (("encoder_q", self.encoder_q),
                           ("encoder_p", self.encoder_p)):
             cfg[name] = {k: _json_value(v) for k, v in cfg[name].items()}
-            cfg[name]["compat_pad_pooling"] = bool(
-                enc.config.compat_pad_pooling)
+            if hasattr(enc.config, "compat_pad_pooling"):
+                cfg[name]["compat_pad_pooling"] = bool(
+                    enc.config.compat_pad_pooling)
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(cfg, f, indent=2)
         vocab = getattr(self.encoder_q.tokenizer, "vocab", None)
@@ -159,7 +173,8 @@ class BiEncoder:
     @classmethod
     def from_pretrained(cls, path: str, tokenizer=None, **kwargs):
         """Load an HF-layout checkpoint directory: one written by
-        ``save_pretrained`` or a reference checkpoint. VDR encoders whose
+        ``save_pretrained`` or a reference checkpoint (VDR, DPR, cross-modal
+        text and image encoders). VDR and cross-modal text encoders whose
         config does not say otherwise get ``compat_pad_pooling=True``, the
         reference's pooling. ``kwargs`` go to the constructor (``device``,
         ``seed``); weights are read on the host and then moved."""
@@ -172,9 +187,9 @@ class BiEncoder:
                     "BiEncoder.save_pretrained), which this package cannot "
                     "read without flax. Convert it where JAX is installed: "
                     "load it with vsearch_tpu's Retriever.from_pretrained, "
-                    "carry each encoder's params over with "
+                    "carry each encoder's params over with the matching "
                     "vsearch_tpu_torch.models.convert"
-                    ".vdr_state_dict_from_flax and write the HF layout "
+                    ".*_state_dict_from_flax and write the HF layout "
                     "with this package's "
                     "save_pretrained")
             raise FileNotFoundError(
@@ -186,7 +201,7 @@ class BiEncoder:
         with open(cfg_file) as f:
             config = cls.config_class.from_dict(json.load(f))
         for enc_cfg in (config.encoder_q, config.encoder_p):
-            if (enc_cfg.get("type", "vdr") == "vdr"
+            if (enc_cfg.get("type", "vdr") in ("vdr", "vdr_crossmodal_text")
                     and "compat_pad_pooling" not in enc_cfg):
                 enc_cfg["compat_pad_pooling"] = True
         weights = os.path.join(path, _WEIGHTS)
@@ -197,19 +212,24 @@ class BiEncoder:
                 "only)")
         sd = torch.load(weights, map_location="cpu", weights_only=True)
         model = cls(config, tokenizer=tokenizer, **kwargs)
-        from .models.convert import vdr_state_dict_from_hf
+        from .models import convert
 
+        readers = {
+            "vdr": lambda sub, c: convert.vdr_state_dict_from_hf(
+                sub, c.bert.hidden_size),
+            "dpr": lambda sub, c: convert.convert_dpr_params(sub),
+            "vdr_crossmodal_text":
+                lambda sub, c: convert.convert_crossmodal_text_params(
+                    sub, c.bert.hidden_size),
+            "vdr_crossmodal_image":
+                lambda sub, c: convert.convert_vdr_image_params(sub)}
         for name, enc in model._encoders():
             prefix = f"{name}." if any(
                 k.startswith(f"{name}.") for k in sd) else ""
             sub = {k[len(prefix):]: v for k, v in sd.items()
                    if k.startswith(prefix)} if prefix else sd
             etype = getattr(enc.config, "type", "vdr")
-            if etype != "vdr":
-                raise NotImplementedError(
-                    f"encoder type {etype!r} is not ported yet")
-            enc.module.load_state_dict(vdr_state_dict_from_hf(
-                sub, enc.config.bert.hidden_size))
+            enc.module.load_state_dict(readers[etype](sub, enc.config))
         return model
 
 

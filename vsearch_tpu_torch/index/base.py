@@ -21,6 +21,12 @@ from ..ops.search import dense_topk_search
 
 logger = logging.getLogger(__name__)
 
+# rows converted and copied at a time by ``DenseIndex._upload`` (256 MB of
+# f32 at 768 dims)
+_UPLOAD_ROWS = 1 << 16
+# source dtypes cast straight to the index dtype (the rest via f32)
+_DIRECT_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
+
 
 class SearchResults(NamedTuple):
     """(ids, scores), each [num_queries, k] numpy arrays."""
@@ -75,6 +81,15 @@ def _resolve_files(pattern: Union[str, Sequence[str]]) -> List[str]:
     return files
 
 
+def _on(device: torch.device, t: torch.Tensor) -> bool:
+    """Whether ``t`` lives on ``device`` ("cuda" meaning the current
+    card)."""
+    if t.device == device:
+        return True
+    return (device.type == t.device.type == "cuda" and device.index is None
+            and t.device.index == torch.cuda.current_device())
+
+
 def _results(ids: torch.Tensor, scores: torch.Tensor) -> SearchResults:
     return SearchResults(ids.cpu().numpy(), scores.cpu().numpy())
 
@@ -83,6 +98,8 @@ class DenseIndex:
     """Dense [N, D] vector index with matmul + top-k search."""
 
     index_type = IndexType.DENSE
+    # 'exact' or 'approx' (searched exactly: see ``search``)
+    selection = "exact"
 
     def __init__(self, index_file: Optional[str] = None,
                  data_file: Optional[str] = None, low_memory: bool = False,
@@ -100,28 +117,65 @@ class DenseIndex:
 
     # -- loading -----------------------------------------------------------
     def init_index(self, index_file: Union[str, Sequence[str]]):
+        """Load one or more shards (``.npy``, ``.npz``, ``.pt``) in their
+        stored dtype and write them into one device tensor shard by
+        shard: no concatenated or f32 host copy of the whole index."""
         files = _resolve_files(index_file)
         logger.info("Loading %s index from %d file(s)",
                     self.index_type.value, len(files))
-        shards = [self._load_one(f) for f in files]
-        mat = np.concatenate(shards, axis=0) if len(shards) > 1 else shards[0]
-        self.set_vectors(mat)
+        self._upload(self._load_one(f) for f in files)
 
     @staticmethod
-    def _load_one(path: str) -> np.ndarray:
+    def _load_one(path: str):
+        """One shard in its stored dtype (``.npy`` memory-mapped)."""
         if path.endswith(".npy"):
-            return np.load(path)
+            return np.load(path, mmap_mode="r")
         if path.endswith(".npz"):
             with np.load(path) as z:
                 return z[list(z.files)[0]]
         if path.endswith(".pt"):
             t = torch.load(path, map_location="cpu", weights_only=True)
-            return (t.to_dense() if t.is_sparse else t).float().numpy()
+            return t.to_dense() if t.is_sparse else t
         raise ValueError(f"unknown dense index format: {path}")
 
     def set_vectors(self, mat):
-        self.vector = torch.as_tensor(np.asarray(mat, dtype=np.float32)) \
-            .to(self.device, self.dtype)
+        """``mat``: an [N, D] numpy array (any float dtype) or torch tensor,
+        stored on the device in ``self.dtype``. Converted in row slices,
+        so no f32 copy of the whole matrix is made on the host; a tensor
+        already on the device in ``self.dtype`` is kept as it is."""
+        if (torch.is_tensor(mat) and _on(self.device, mat)
+                and mat.dtype == self.dtype and mat.ndim == 2):
+            self.vector = mat
+        else:
+            self._upload([mat if torch.is_tensor(mat) or
+                          isinstance(mat, np.ndarray) else np.asarray(mat)])
+
+    def _upload(self, shards):
+        """Stack ``shards`` row-wise into one [N, D] ``self.dtype`` tensor
+        on the device, ``_UPLOAD_ROWS`` rows at a time. f16 and f32 slices
+        convert straight to ``self.dtype`` (f16 -> f32 is exact, so this
+        equals the f32 detour); other dtypes pass through f32, as the f32
+        detour did."""
+        shards = list(shards)
+        n = sum(int(m.shape[0]) for m in shards)
+        d = int(shards[0].shape[1]) if shards else 0
+        out = torch.empty((n, d), dtype=self.dtype, device=self.device)
+        row = 0
+        for mat in shards:
+            if mat.ndim != 2 or mat.shape[1] != d:
+                raise ValueError(f"index shard of shape {tuple(mat.shape)} "
+                                 f"does not stack on [*, {d}]")
+            for s in range(0, mat.shape[0], _UPLOAD_ROWS):
+                part = mat[s:s + _UPLOAD_ROWS]
+                if not torch.is_tensor(part):
+                    part = torch.from_numpy(np.array(
+                        part, dtype=part.dtype if part.dtype in
+                        (np.float16, np.float32) else np.float32))
+                elif part.dtype not in _DIRECT_DTYPES:
+                    part = part.float()
+                out[row:row + part.shape[0]] = part.to(self.device)
+                row += part.shape[0]
+        self.vector = out
 
     def load_data(self, data_file: Union[str, Sequence[str]]):
         files = _resolve_files(data_file)
@@ -156,6 +210,12 @@ class DenseIndex:
         return q.to(self.device, torch.float32)
 
     def search(self, q_embs, k: int) -> SearchResults:
+        """Exact top-k by chunked product (``ops.search.dense_topk_search``).
+        ``selection`` 'approx' is the JAX package's TPU-only
+        ``approx_max_k``, which it too answers exactly off the TPU."""
+        if self.selection not in ("exact", "approx"):
+            raise ValueError(f"unknown selection {self.selection!r} "
+                             "(dense indexes: 'exact' or 'approx')")
         q = self._query_tensor(q_embs, self.vector.shape[1])
         k = min(k, int(self.vector.shape[0]))
         ids, scores = dense_topk_search(q.to(self.dtype), self.vector, k)

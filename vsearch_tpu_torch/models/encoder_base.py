@@ -13,8 +13,26 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..device import resolve_device
+
+
+def build_module(module_cls, config, init: Callable, seed: int,
+                 device: torch.device, dtype: torch.dtype,
+                 state_dict=None) -> nn.Module:
+    """``module_cls(config)`` built without storage (meta device), then
+    materialised on ``device``, initialised by ``init(module, generator)``
+    from ``seed`` (an explicit generator), cast to ``dtype`` and put in
+    eval mode; ``state_dict`` (the port's layout) then loads over it."""
+    with torch.device("meta"):
+        module = module_cls(config)
+    module = module.to_empty(device=device)
+    init(module, torch.Generator(device=device).manual_seed(seed))
+    module = module.to(dtype).eval()
+    if state_dict is not None:  # cast to the compute dtype on load
+        module.load_state_dict(state_dict)
+    return module
 
 
 def length_buckets(max_len: int, min_bucket: int = 32) -> List[int]:

@@ -21,7 +21,7 @@ from torch import nn
 from ..ops.activations import elu1p
 from ..ops.sparse import build_bow_mask, build_topk_mask
 from .bert import BertConfig, BertModel, init_bert_weights
-from .encoder_base import TextEncoderBase
+from .encoder_base import TextEncoderBase, build_module
 
 # elements of one [B*L, chunk] f32 logits block in the chunked max-pool
 _POOL_BLOCK_ELEMS = 1 << 27
@@ -139,14 +139,9 @@ class VDREncoder(TextEncoderBase):
             from ..tokenization import get_tokenizer
             tokenizer = get_tokenizer(config.model_id)
         super().__init__(config, tokenizer, device)
-        with torch.device("meta"):
-            module = VDRModule(config)
-        module = module.to_empty(device=self.device)
-        init_bert_weights(module, torch.Generator(
-            device=self.device).manual_seed(seed))
-        self.module = module.to(config.bert.dtype).eval()
-        if state_dict is not None:  # cast to the compute dtype on load
-            self.module.load_state_dict(state_dict)
+        self.module = build_module(VDRModule, config, init_bert_weights,
+                                   seed, self.device, config.bert.dtype,
+                                   state_dict)
 
     # -- per-batch pipelines -------------------------------------------------
     def _masked_embed(self, ids, ttype, mask, topk, activate_lexical):

@@ -2,8 +2,9 @@
 (counterpart of ``vsearch_tpu/retriever.py``).
 
 Bi-encoder + dense / sparse / bag-of-token index; alpha (parametric)
-search (through the binary-support proxy on large sparse indexes) and
-beta (semi-parametric: binary first stage + on-the-fly rerank) search;
+search (through the binary-support proxy on large sparse indexes), dense
+(DPR) search, cross-modal text <-> image search, and beta
+(semi-parametric: binary first stage + on-the-fly rerank) search;
 tokenizer-only BoT index construction; checkpoints through the
 bi-encoder's ``save_pretrained``/``from_pretrained``. Negative mining
 for training comes with the training slice.
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .biencoder import BiEncoder, BiEncoderConfig, join_corpus
+from .biencoder import BiEncoder, BiEncoderConfig, join_corpus, takes_images
 from .index import (BoTIndex, DenseIndex, IndexType, SearchResults,
                     SparseIndex)
 
@@ -88,8 +89,10 @@ class Retriever(BiEncoder):
     def _beta_rerank(self, q_emb: np.ndarray, results: SearchResults,
                      index, batch_size: int) -> SearchResults:
         """Second stage of beta search: embed the retrieved texts once each
-        (deduplicated across queries, length-sorted into batches), keep
-        them on the device in compact sparse form, and rescore there."""
+        (deduplicated across queries, length-sorted into batches) and
+        rescore them: in compact sparse form on the device for encoders
+        with ``embed_sparse``, from dense embeddings on the host for the
+        others (DPR, cross-modal text), as the JAX package does."""
         ret_ids = np.asarray(results.ids)  # [B, k]
         b, k = ret_ids.shape  # the index may have clamped k to its rows
         uniq_ids, inverse = np.unique(ret_ids.reshape(-1),
@@ -102,12 +105,17 @@ class Retriever(BiEncoder):
                                kind="stable")
         ret_texts = [ret_texts[int(i)] for i in sort_perm]
         inverse = np.argsort(sort_perm, kind="stable")[inverse]
-        cols, vals = self.encoder_p.embed_sparse(
-            ret_texts, batch_size=batch_size, activate_lexical=True,
-            return_device=True)
-        rescored = _sparse_rerank_scores(
-            cols, vals, inverse, b, k,
-            np.ascontiguousarray(q_emb, dtype=np.float32)).cpu().numpy()
+        q32 = np.ascontiguousarray(q_emb, dtype=np.float32)
+        if hasattr(self.encoder_p, "embed_sparse"):
+            cols, vals = self.encoder_p.embed_sparse(
+                ret_texts, batch_size=batch_size, activate_lexical=True,
+                return_device=True)
+            rescored = _sparse_rerank_scores(cols, vals, inverse, b, k,
+                                             q32).cpu().numpy()
+        else:  # dense passage embeddings, rescored on the host
+            p_emb = self.encoder_p.embed(ret_texts, batch_size=batch_size)
+            rescored = np.einsum("bkv,bv->bk", p_emb[inverse].reshape(
+                b, k, -1).astype(np.float32), q32)
         order = np.argsort(-rescored, axis=1)
         return SearchResults(np.take_along_axis(ret_ids, order, axis=1),
                              np.take_along_axis(rescored, order, axis=1))
@@ -118,20 +126,28 @@ class Retriever(BiEncoder):
                     max_len: Optional[int] = None):
         if isinstance(index_type, str):
             index_type = IndexType(index_type.lower())
-        texts = list(texts)
+        if not takes_images(self.encoder_p):
+            texts = list(texts)
         if index_type == IndexType.DENSE:
             index = DenseIndex(device=self.device)
             index.set_vectors(self.encode_corpus(
                 texts, batch_size=batch_size, max_len=max_len))
         elif index_type == IndexType.SPARSE:
-            from .ops.ell import ell_from_topk
+            from .ops.ell import ELLMatrix, ell_from_topk
 
             index = SparseIndex(device=self.device)
-            cols, vals = self.encoder_p.embed_sparse(
-                join_corpus(texts), batch_size=batch_size, max_len=max_len)
-            index.set_ell(ell_from_topk(cols, vals,
-                                        self.encoder_p.config.out_dim,
-                                        device=self.device))
+            if hasattr(self.encoder_p, "embed_sparse"):
+                cols, vals = self.encoder_p.embed_sparse(
+                    join_corpus(texts), batch_size=batch_size,
+                    max_len=max_len)
+                ell = ell_from_topk(cols, vals, self.encoder_p.config.out_dim,
+                                    device=self.device)
+            else:  # dense embeddings (cross-modal encoders) -> ELL rows
+                ell = ELLMatrix.from_dense(
+                    self.encode_corpus(texts, batch_size=batch_size,
+                                       max_len=max_len),
+                    val_dtype=np.float32, device=self.device)
+            index.set_ell(ell)
         elif index_type == IndexType.BAG_OF_TOKEN:
             from .index.bot_build import build_bot_ell
 
@@ -139,7 +155,7 @@ class Retriever(BiEncoder):
             tokenizer = self.encoder_p.tokenizer
             index.set_ell(build_bot_ell(
                 tokenizer, join_corpus(texts), max_len=max_len or 128,
-                shift=self.encoder_p.config.shift_vocab_num,
+                shift=getattr(self.encoder_p.config, "shift_vocab_num", 0),
                 vocab_size=tokenizer.vocab_size,
                 device=self.device))
         else:
