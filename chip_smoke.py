@@ -68,7 +68,30 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      and #3 at V=27,623 held against their plain versions, #3 timed, its
      recall at C=256 printed); (h) ``cli.score.eval_wiki21m`` on (f)'s
      result file and ``cli.score.eval_beir`` on a BEIR folder with the
-     phase-4 VDR and the DPR checkpoints.
+     phase-4 VDR and the DPR checkpoints;
+ 12. training: (a) a 2-layer f32 VDR trains 3 steps on the card and on
+     the CPU from equal weights and batches (dropout 0), losses and global
+     norms held to 1e-4 on equal weights and 1e-3 after an update; (b)
+     svdr_nq at BERT-base width through ``cli.train`` on
+     ``conf/train_ir_cfg.yaml`` (the phase-4 model's random weights as
+     ``model_path``, bf16 compute on f32 weights, 32 queries of 128 tokens
+     + 64 passages of 256) over ``--train-samples`` (2,048) synthetic
+     samples made from the phase-4 corpus, one epoch cut to
+     ``--train-steps`` (32) batches with a mid-epoch train-state save:
+     step ms, samples/s, tokens/s, FLOP share of the bf16 peak, card peak;
+     the learning gate (2 fixed batches x 12 at lr 1e-4: the mean loss of
+     the last 5 steps below that of the first 5); card peak with and
+     without remat; (c) one step profiled by kernel, and two backward
+     passes on equal inputs compared bit for bit; (d)
+     ``--mining-steps`` steps with ``ret_negatives=1`` mined over the
+     phase-4 1,048,576-row bag-of-token index (kernel #1 packs it, #3 runs
+     each batch's first stage; counts zeroed before, read after), mining
+     ms against step ms, no mined negative holding its answer unless the
+     pool was padded; (e) a fresh ``cli.train`` resumes (b)'s mid-epoch
+     state and replays its next step's loss within ``RESUME_RTOL`` (a
+     second resume is printed against the first as a control, with the
+     sums of gradients and weights after each step); (f)
+     ``--dpr-steps`` steps of dpr_nq with a BERT-base DPR bi-encoder.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -76,8 +99,11 @@ kernel; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
+import os
 import re
 import resource
 import subprocess
@@ -106,6 +132,21 @@ DPR_DIM = 768  # DPR's [CLS] vectors at BERT-base width
 CROSSMODAL_IMAGES = 32_768
 BLOCK_ROWS = 1 << 18  # BoTIndex.stream_block_rows: the tiers' block
 LAYERS = 12
+H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
+TRAIN_SAMPLES = 2048  # phase 12's training file
+# the BERT-base shape of phase 12's bi-encoders; a CPU rehearsal of the
+# control flow patches it smaller
+BERT_BASE = {"vocab_size": 30522, "hidden_size": 768,
+             "num_hidden_layers": LAYERS, "num_attention_heads": 12,
+             "intermediate_size": 3072}
+# a phase-12 step: 32 queries of 128 tokens, 64 passages of 256 (one hard
+# negative each)
+TRAIN_B, TRAIN_LQ, TRAIN_LP = 32, 128, 256
+# (e) the resumed run's next loss against the uninterrupted run's: the same
+# weights, batch and dropout masks through a forward pass whose kernels
+# PyTorch runs deterministically (it came out equal on the H100); later
+# steps also carry the backward pass's nondeterministic reductions
+RESUME_RTOL = 1e-6
 # the card; a CPU rehearsal of the control flow patches this to "cpu"
 DEVICE = "cuda"
 
@@ -352,6 +393,10 @@ def main() -> int:
     ap.add_argument("--served-rows", type=int, default=SERVED_ROWS)
     ap.add_argument("--dpr-rows", type=int, default=WIKI21M_ROWS)
     ap.add_argument("--images", type=int, default=CROSSMODAL_IMAGES)
+    ap.add_argument("--train-samples", type=int, default=TRAIN_SAMPLES)
+    ap.add_argument("--train-steps", type=int, default=32)
+    ap.add_argument("--mining-steps", type=int, default=6)
+    ap.add_argument("--dpr-steps", type=int, default=4)
     args = ap.parse_args()
 
     import torch
@@ -594,8 +639,12 @@ def main() -> int:
 
     # -- phase 8: an index larger than the card -------------------------------
     served_texts = texts[:args.served_rows]
+    # phase 12 mines negatives over the phase-4 index: its ELL waits on
+    # the host, its texts stay
+    bot_ell = dataclasses.replace(ell, cols=ell.cols.cpu(),
+                                  nnz=ell.nnz.cpu())
     del idx_big, idx_small, ell, bits, ell_s, words_s, qT, qT_s, s_k, s_p
-    del dy, dyT, texts
+    del dy, dyT
     retriever.index = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -650,6 +699,20 @@ def main() -> int:
             "bucketed_keys": "bucketed",
             "int8_bucketed_keys": "int8_bucketed"}[e["name"]]]
         e.update(p11["fields"].get(e["name"], {}))
+    del p11
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 12: training at BERT-base width, mining over the phase-4 index
+    t_12 = time.perf_counter()
+    launch_12 = phase_train(torch, bp, dev, args, retriever, tok, words,
+                            texts, bot_ell)
+    log(f"phase 12 took {time.perf_counter() - t_12:.1f} s")
+    for e in kernels:  # the launches of phase 12's mining path
+        e["launches"] += launch_12[{
+            "pack_ell": "pack", "bitpack_scores": "scores",
+            "bucketed_keys": "bucketed",
+            "int8_bucketed_keys": "int8_bucketed"}[e["name"]]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -2042,6 +2105,500 @@ def phase_eleven(torch, bp, dev, args, retriever, tok, words, texts,
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+
+# -- phase 12 -----------------------------------------------------------------
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_flops(bert: dict, b: int, lq: int, lp: int, negs: int = 1,
+                v_out: int = 29_523, vdr: bool = True) -> float:
+    """One step's FLOPs (forward and backward, 3x the forward) of a q and a
+    p encoder: 6 x non-embedding parameters x tokens, the tied vocabulary
+    projection of each token (VDR) and attention's two L x L products."""
+    h, f, nl = (bert["hidden_size"], bert["intermediate_size"],
+                bert["num_hidden_layers"])
+    layer = 4 * h * h + 2 * h * f + 9 * h + f
+    m = b * (1 + negs)
+    tokens = b * lq + m * lp
+    flops = 6 * nl * layer * tokens
+    if vdr:
+        flops += 3 * 2 * h * v_out * tokens
+    flops += 3 * nl * 4 * h * (b * lq * lq + m * lp * lp)
+    return float(flops)
+
+
+def make_train_samples(rng, texts, words, n: int, path: str) -> None:
+    """``n`` samples in the training JSONL schema: the positive is a random
+    passage of the corpus, the question 4-8 of its words, the answer the
+    question's rarest word (the highest Zipf rank), one hard negative
+    another random passage."""
+    rank = {w: i for i, w in enumerate(words)}
+    src = rng.integers(0, len(texts), size=(n, 2))
+    with open(path, "w") as f:
+        for pos, neg in src.tolist():
+            ws = texts[pos].split()
+            pick = rng.choice(len(ws), size=int(rng.integers(4, 9)),
+                              replace=False)
+            q = [ws[j] for j in sorted(pick)]
+            f.write(json.dumps({
+                "question": " ".join(q),
+                "answers": [max(q, key=rank.__getitem__)],
+                "positive_ctxs": [{"text": texts[pos]}],
+                "negative_ctxs": [],
+                "hard_negative_ctxs": [{"text": texts[neg]}]}) + "\n")
+
+
+@contextlib.contextmanager
+def recorded_steps(torch, dev, out: list, before=None, sums=None):
+    """Every ``RetrieverTrainer`` made inside records, for each step, its
+    host milliseconds (synchronised before and after), loss and unclipped
+    global norm into ``out`` (as ``(ms, loss, grad_norm)``), and into
+    ``sums`` the f64 sums of its clipped gradients and updated weights;
+    ``before(i)`` runs ahead of the i-th step it records."""
+    from vsearch_tpu_torch.train import trainer as tr
+
+    orig = tr.RetrieverTrainer._init_state
+
+    def init(self, updates_per_epoch):
+        orig(self, updates_per_epoch)
+        step = self._step_fn
+
+        def timed(state, batch, seed):
+            if before is not None:
+                before(len(out))
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, seed)
+            sync(torch, dev)
+            out.append(((time.perf_counter() - t0) * 1e3,
+                        float(metrics["loss"]), float(metrics["grad_norm"])))
+            if sums is not None:
+                ps = state.tx.params
+                sums.append(tuple(float(torch.stack(
+                    [t.double().sum() for t in ts]).sum())
+                    for ts in ([p.grad for p in ps], ps)))
+            return state, metrics
+
+        self._step_fn = timed
+
+    tr.RetrieverTrainer._init_state = init
+    try:
+        yield out
+    finally:
+        tr.RetrieverTrainer._init_state = orig
+
+
+def train_cli(conf: str, ckpt: str, out_dir: str, data: str, dev, extra
+              ) -> list:
+    """``cli.train`` on ``conf/train_ir_cfg.yaml`` with ``data`` as the one
+    training set, the checkpoint ``ckpt`` and ``extra`` overrides."""
+    from vsearch_tpu_torch.cli import train as cli_train
+
+    return cli_train.main([
+        "--config", conf, "--device", str(dev),
+        f"data_stores.smoke.file={data}", "train_datasets=[smoke]",
+        f"model_path={ckpt}", f"output_dir={out_dir}",
+        "train.num_train_epochs=1", "train.log_batch_step=1000000",
+        "train.train_rolling_loss_step=1000000", *extra])
+
+
+def peak_gib(torch, dev) -> str:
+    if dev.type != "cuda":
+        return "not measured"
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+def check_train_tiny(torch, dev, tok, texts) -> None:
+    """(a) A 2-layer f32 VDR trains 3 steps on the card and on the CPU from
+    equal weights and batches, dropout 0: the losses and unclipped global
+    norms agree (TF32 off)."""
+    from vsearch_tpu_torch.data import BiEncoderPassage, BiEncoderSample
+    from vsearch_tpu_torch.data.batching import create_biencoder_batch
+    from vsearch_tpu_torch.models.vdr import VDREncoder, VDREncoderConfig
+    from vsearch_tpu_torch.train import optim, step
+    from vsearch_tpu_torch.train.loss import VDRLossConfig
+
+    cfg = VDREncoderConfig.from_dict({
+        "vocab_size": 30522, "hidden_size": 64, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "intermediate_size": 128, "max_len": 64,
+        "shift_vocab_num": 999, "topk": 768, "hidden_dropout_prob": 0.0,
+        "attention_probs_dropout_prob": 0.0})
+    samples = [BiEncoderSample(
+        query=" ".join(texts[i].split()[:6]), answers=[],
+        positive_passages=[BiEncoderPassage(" ".join(texts[i].split()[:50]))],
+        negative_passages=[],
+        hard_negative_passages=[BiEncoderPassage(
+            " ".join(texts[i + 8].split()[:50]))]) for i in range(8)]
+    b = create_biencoder_batch(tok, tok, samples, q_max_len=32,
+                               p_max_len=64, num_hard_negatives=1)
+    runs = []
+    for where in ("cpu", dev):
+        mods = {s: VDREncoder(cfg, tokenizer=tok, seed=seed, device="cpu")
+                .module.to(where) for s, seed in (("q", 5), ("p", 6))}
+        module = torch.nn.ModuleDict(mods)
+        fn = step.make_train_step(
+            *[step.make_encoder_apply(mods[s]) for s in "qp"],
+            step.TrainStepConfig(vocab_size=30522, shift_vocab_num=999,
+                                 loss=VDRLossConfig(topk=768)))
+        state = step.TrainState.create(module, optim.get_optimizer(
+            [module], schedule=optim.get_schedule_warmup(1, 1e-3)))
+        batch = step.TrainBatch(
+            torch.from_numpy(b.q_tensor).long().to(where),
+            torch.from_numpy(b.p_tensor).long().to(where))
+        got = []
+        for i in range(3):
+            state, m = fn(state, batch, i)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append(np.array(got))
+    gaps = (np.abs(runs[1] - runs[0]) / np.abs(runs[0])).max(axis=1)
+    log(f"  (a) tiny f32 VDR, 3 steps: CPU (loss, grad_norm) "
+        f"{runs[0].tolist()}, card {runs[1].tolist()}; relative gaps "
+        f"{gaps.tolist()}")
+    # steps 1-2 run equal weights (the warmup's first lr is 0): f32
+    # summation order only, on logits that sum 29,523 products; step 3
+    # follows Adam's ~lr x sign(g) update, which turns rounding in
+    # near-zero gradients into lr-sized weight differences
+    require(gaps[:2].max() <= 1e-4 and gaps[2] <= 1e-3,
+            f"tiny training differs between CPU and card by {gaps}")
+
+
+def mining_check(torch, dev, retriever, records: list):
+    """Wrap ``retriever.retrieve_negatives``: time each call (synchronised)
+    and hold its negatives to the gate: none contains its sample's answer
+    unless that sample's pool was padded (fewer answer-free hits in the
+    top ``ret_topk`` than negatives asked for)."""
+    from vsearch_tpu_torch.eval.qa_utils import has_answer
+
+    orig = retriever.retrieve_negatives
+
+    def checked(q_emb, answers, ret_neg_num=1, ret_topk=100, pool_size=20,
+                ret_dropout=0.0, index=None, seed=None):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        negs = orig(q_emb, answers=answers, ret_neg_num=ret_neg_num,
+                    ret_topk=ret_topk, pool_size=pool_size,
+                    ret_dropout=ret_dropout, index=index, seed=seed)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        first_ms = retriever.last_timings["first_stage"] * 1e3
+        bad = [i for i, (ans, ns) in enumerate(zip(answers, negs))
+               if any(has_answer(ans, t, "string") for t in ns)]
+        padded = 0
+        if bad:
+            idx = index if index is not None else retriever.index
+            hits = retriever.retrieve(
+                q_emb, a=768, k=ret_topk, dropout=ret_dropout, index=idx,
+                rng=np.random.default_rng(seed) if seed is not None
+                else None).ids
+            for i in bad:
+                clean = [j for j in hits[i] if not has_answer(
+                    answers[i], str(idx.get_sample(int(j))), "string")]
+                require(len(clean) < ret_neg_num,
+                        f"mined negative of sample {i} holds its answer "
+                        f"{answers[i]} though the pool had {len(clean)}")
+                padded += 1
+        records.append((ms, first_ms, padded))
+        return negs
+
+    retriever.retrieve_negatives = checked
+
+
+def determinism_probe(torch, module, fn, batch) -> None:
+    """Two train steps at lr 0 on the same weights, batch and seed: are
+    the gradients equal bit for bit, and which ops does PyTorch flag as
+    nondeterministic (``use_deterministic_algorithms(warn_only=True)``)?"""
+    import warnings
+
+    from vsearch_tpu_torch.train import optim, step
+
+    state = step.TrainState.create(module, optim.get_optimizer(
+        [module], learning_rate=0.0, max_grad_norm=None))
+    grads = []
+    flagged = set()
+    for _ in range(2):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                state, _ = fn(state, batch, 300)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        flagged |= {str(w.message).split(" does not have a deterministic")[0]
+                    for w in caught if "deterministic" in str(w.message)}
+        grads.append([p.grad.clone() for p in state.tx.params])
+    differ = [i for i, (a, b) in enumerate(zip(*grads))
+              if not torch.equal(a, b)]
+    worst = max((float(((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30))) for a, b in zip(*grads)), default=0.0)
+    log(f"  determinism: 2 backward passes on equal inputs give equal "
+        f"gradients in {len(grads[0]) - len(differ)} of {len(grads[0])} "
+        f"tensors (largest relative gap {worst:.2e}); ops PyTorch flags as "
+        f"nondeterministic: {sorted(flagged) or 'none'}")
+    state.tx.zero_grad()
+
+
+def phase_train(torch, bp, dev, args, retriever, tok, words, texts,
+                bot_ell) -> dict:
+    """Phase 12: (a) tiny CPU <-> card training parity; (b) svdr_nq at
+    BERT-base width through ``cli.train`` with a mid-epoch save, the
+    learning gate and peak memory with and without remat; (c) one step
+    profiled by kernel; (d) retrieved negatives mined over the phase-4
+    bag-of-token index; (e) resume from (b)'s mid-epoch train state; (f)
+    DPR steps of dpr_nq. Returns the launch counts of (d)'s mining path."""
+    import shutil
+    import tempfile
+
+    from vsearch_tpu_torch.data import BiEncoderDataset
+    from vsearch_tpu_torch.index import BoTIndex
+    from vsearch_tpu_torch.models.encoder_base import set_remat
+    from vsearch_tpu_torch.retriever import Retriever, RetrieverConfig
+    from vsearch_tpu_torch.train import optim, step
+    from vsearch_tpu_torch.train.trainer import RetrieverTrainer
+
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
+                        "train_ir_cfg.yaml")
+    work = tempfile.mkdtemp(prefix="chip_smoke_12_")
+    try:
+        t0 = time.perf_counter()
+        check_train_tiny(torch, dev, tok, texts)
+        log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+
+        # -- (b) svdr_nq through cli.train -----------------------------------
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(args.seed + 12)
+        data = os.path.join(work, "train.jsonl")
+        make_train_samples(rng, texts, words, args.train_samples, data)
+        ckpt = os.path.join(work, "vdr_init")
+        retriever.save_pretrained(ckpt)  # random weights from --seed
+        # the file's epoch is cut to --train-steps by the sampling rate
+        file_steps = args.train_samples // TRAIN_B
+        steps_per_epoch = args.train_steps
+        save_at = steps_per_epoch - 4
+        cut = [f"train.train_sampling_rates=[{steps_per_epoch / file_steps}]"]
+        q_cfg = retriever.encoder_q.config
+        flops = train_flops(BERT_BASE, TRAIN_B, TRAIN_LQ, TRAIN_LP,
+                            v_out=q_cfg.out_dim)
+        log(f"phase 12 (b) svdr_nq through cli.train: BERT-base VDR q+p "
+            f"({BERT_BASE['num_hidden_layers']} layers, hidden "
+            f"{BERT_BASE['hidden_size']}, V'={q_cfg.out_dim}, topk "
+            f"{q_cfg.topk}), bf16 "
+            f"compute on f32 weights, B={TRAIN_B} + 1 hard negative, q "
+            f"{TRAIN_LQ} / p {TRAIN_LP} tokens; {args.train_samples} "
+            f"samples, an epoch cut to {steps_per_epoch} of their "
+            f"{file_steps} batches, mid-epoch save at step "
+            f"{save_at}; set-up {time.perf_counter() - t0:.1f} s")
+        steps, sums_b = [], []
+        b_dir, mid_dir = os.path.join(work, "b"), os.path.join(work, "b_mid")
+
+        def keep_mid_epoch_state(i):
+            if i == save_at:  # the save after step save_at is on disk
+                shutil.copytree(os.path.join(b_dir, "train_state"), mid_dir)
+
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recorded_steps(torch, dev, steps, keep_mid_epoch_state,
+                            sums_b):
+            trainer = train_cli(conf, ckpt, b_dir, data, dev,
+                                [f"train.save_steps={save_at}", *cut])
+        wall_b = time.perf_counter() - t0
+        require(trainer.state.step == steps_per_epoch == len(steps),
+                f"(b) took {len(steps)} steps")
+        ms = np.array([m for m, _, _ in steps])
+        losses = [x for _, x, _ in steps]
+        require(np.isfinite(losses).all(), f"(b) losses {losses}")
+        med = float(np.median(ms[1:]))
+        padded = TRAIN_B * TRAIN_LQ + 2 * TRAIN_B * TRAIN_LP
+        log(f"  step ms (synchronised): first {ms[0]:.1f}, median of the "
+            f"other {len(ms) - 1} {med:.2f} (min {ms[1:].min():.2f}, max "
+            f"{ms[1:].max():.2f}); {TRAIN_B / med * 1e3:.1f} samples/s, "
+            f"{padded / med * 1e3:.0f} tokens/s ({padded} padded tokens a "
+            f"step)")
+        log(f"  step FLOPs {flops / 1e12:.2f} T: {flops / med / 1e9:.1f} "
+            f"TFLOP/s, {flops / med / 1e9 / (H100_BF16_FLOPS / 1e12):.1%} of "
+            f"the dense bf16 peak ({flops / H100_BF16_FLOPS * 1e3:.2f} ms "
+            f"bound)")
+        log(f"  loss first step {losses[0]:.4f}, last {losses[-1]:.4f}; "
+            f"cli.train wall {wall_b:.1f} s (with checkpoint saves); card "
+            f"peak {peak_gib(torch, dev)}")
+        require(os.path.isfile(os.path.join(b_dir, "checkpoint_1",
+                                            "pytorch_model.bin"))
+                and os.path.isfile(os.path.join(mid_dir, "state.pt")),
+                "(b) wrote no epoch-end model checkpoint or mid-epoch "
+                "train state")
+
+        # -- learning gate, remat, profile on the trained retriever ----------
+        vdr = trainer.retriever
+        module, ds = trainer.module, trainer.datasets[0]
+        fixed = [trainer._make_device_batch(
+            [ds[i] for i in range(k * TRAIN_B, (k + 1) * TRAIN_B)], 9, k)[0]
+            for k in range(2)]
+        real = sum(int((x != 0).sum()) for b in fixed for x in b)
+        log(f"  {real / (2 * padded):.1%} of a step's padded tokens are "
+            f"real: {real / 2 / med * 1e3:.0f} real tokens/s")
+        tx = optim.get_optimizer([module], schedule=optim.get_schedule_warmup(
+            0, 1e-4), max_grad_norm=2.0)
+        state = step.TrainState.create(module, tx)
+        fn = step.make_train_step(trainer._apply_q, trainer._apply_p,
+                                  trainer.step_cfg)
+        gate = []
+        for i in range(24):
+            state, m = fn(state, fixed[i % 2], i)
+            gate.append(float(m["loss"]))
+        first, last = float(np.mean(gate[:5])), float(np.mean(gate[-5:]))
+        log(f"  learning gate: 2 fixed batches x 12 at lr 1e-4: mean loss "
+            f"of the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+        require(np.isfinite(gate).all() and last < first,
+                f"training does not learn: {gate}")
+        for remat in (False, True):
+            set_remat(module, remat)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            sync(torch, dev)
+            t1 = time.perf_counter()
+            for i in range(2):
+                state, m = fn(state, fixed[0], 100 + i)
+            sync(torch, dev)
+            ms_remat = (time.perf_counter() - t1) / 2 * 1e3
+            log(f"  remat={remat}: card peak over 2 steps "
+                f"{peak_gib(torch, dev)}, {ms_remat:.1f} ms a step")
+        set_remat(module, False)
+
+        # -- (c) one step by kernel -------------------------------------------
+        if dev.type == "cuda":
+            profile_by_kernel(
+                torch, "train step (b's width)",
+                lambda: fn(state, fixed[1], 200),
+                {"bf16 GEMMs": r"gemm|nvjet|cutlass|sm90_xmma|ampere",
+                 "softmax": r"softmax",
+                 "reductions (amax, norms)": r"reduce|amax|norm",
+                 "elementwise": r"elementwise|vectorized|unrolled",
+                 "AdamW": r"adam|multi_tensor|foreach"})
+        del state, tx
+        determinism_probe(torch, module, fn, fixed[0])
+        del fn, fixed
+        gc.collect()
+
+        # -- (d) retrieved negatives over the phase-4 index -------------------
+        t0 = time.perf_counter()
+        sync(torch, dev)
+        bp.reset_launch_counts()
+        index = BoTIndex(device=dev)
+        index.set_ell(dataclasses.replace(bot_ell,
+                                          cols=bot_ell.cols.to(dev),
+                                          nnz=bot_ell.nnz.to(dev)))
+        index.data = texts
+        index.build_bitpack()
+        vdr.index, vdr.index_type = index, index.index_type
+        mined = []
+        mining_check(torch, dev, vdr, mined)
+        steps_d = []
+        cfg_d = dataclasses.replace(
+            trainer.cfg, ret_negatives=1, ret_topk=20,
+            negative_pool_size=100, save_steps=0,
+            train_sampling_rates=[args.mining_steps / file_steps],
+            output_dir=os.path.join(work, "d"))
+        with recorded_steps(torch, dev, steps_d):
+            RetrieverTrainer(vdr, cfg_d, [BiEncoderDataset(data)]).run_train()
+        sync(torch, dev)
+        launches = dict(bp.LAUNCHES)
+        del vdr.retrieve_negatives
+        ms_d = [m for m, _, _ in steps_d]
+        log(f"phase 12 (d) retrieved negatives over the phase-4 index "
+            f"({len(texts)} rows, 1 negative of the top 20, pool 100): "
+            f"{len(steps_d)} steps, losses "
+            f"{[round(x, 4) for _, x, _ in steps_d]}; mining ms a batch "
+            f"{[round(m, 1) for m, _, _ in mined]} (of which the first stage "
+            f"{[round(f, 1) for _, f, _ in mined]}; the query embed runs "
+            f"before it) against step ms "
+            f"{[round(m, 1) for m in ms_d]} (96 passages a step: (b)'s 64 "
+            f"and 32 mined); "
+            f"{sum(p for _, _, p in mined)} padded pools; launches "
+            f"{launches}; took {time.perf_counter() - t0:.1f} s")
+        require(len(steps_d) >= 5 and len(mined) == len(steps_d),
+                f"(d) ran {len(steps_d)} steps, {len(mined)} minings")
+        require(np.isfinite([x for _, x, _ in steps_d]).all(),
+                "(d) non-finite loss")
+        require(launches["pack"] >= 1 and launches["bucketed"] >= len(mined),
+                f"mining skipped kernels: {launches}")
+        vdr.index = None
+        del index, trainer, vdr, module, ds
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- (e) resume from (b)'s mid-epoch train state ----------------------
+        t0 = time.perf_counter()
+        with open(os.path.join(mid_dir, "train_meta.json")) as f:
+            meta = json.load(f)
+        require(meta["offset"] == save_at, f"(b)'s mid-epoch state {meta}")
+        runs, sums_e = [], []
+        for k in range(2):  # the second resume is a control on the first
+            resume_dir = os.path.join(work, f"e{k}")
+            shutil.copytree(mid_dir, os.path.join(resume_dir, "train_state"))
+            steps_e, sums = [], []
+            with recorded_steps(torch, dev, steps_e, sums=sums):
+                resumed = train_cli(conf, ckpt, resume_dir, data, dev,
+                                    [f"train.save_steps={save_at}",
+                                     "resume=true", *cut])
+            require(resumed.start_batch == save_at,
+                    f"resumed at {resumed.start_batch}")
+            runs.append(np.array([(x, g) for _, x, g in steps_e]))
+            sums_e.append(sums)
+            del resumed
+            gc.collect()
+        want = np.array([(x, g) for _, x, g in steps[save_at:]])
+        gaps = (np.abs(runs[0] - want) / np.abs(want)).tolist()
+        gaps_rr = (np.abs(runs[1] - runs[0]) / np.abs(runs[0])).tolist()
+        log(f"phase 12 (e) resume at epoch 0, offset {save_at}: (loss, "
+            f"grad_norm) {runs[0].tolist()} against the uninterrupted "
+            f"run's {want.tolist()}; relative gaps {gaps} (the next step's "
+            f"loss held to {RESUME_RTOL}); a second resume against the "
+            f"first: gaps {gaps_rr}; took {time.perf_counter() - t0:.1f} s")
+        for k, label in ((0, "the next step"), (1, "the step after")):
+            log(f"  (e) f64 sums of the clipped gradients and the updated "
+                f"weights after {label}: uninterrupted "
+                f"{sums_b[save_at + k]}, resumes {sums_e[0][k]}, "
+                f"{sums_e[1][k]}")
+        require(len(runs[0]) == len(want) and gaps[0][0] <= RESUME_RTOL,
+                "resumed run differs")
+
+        # -- (f) DPR ---------------------------------------------------------
+        t0 = time.perf_counter()
+        enc = dict(BERT_BASE, type="dpr", model_id="synthetic",
+                   dtype="bfloat16")
+        dpr_ckpt = os.path.join(work, "dpr_init")
+        Retriever(RetrieverConfig(encoder_q=dict(enc, max_len=TRAIN_LQ),
+                                  encoder_p=dict(enc, max_len=TRAIN_LP)),
+                  tokenizer=tok, seed=args.seed, device=dev
+                  ).save_pretrained(dpr_ckpt)
+        steps_f = []
+        with recorded_steps(torch, dev, steps_f):
+            train_cli(conf, dpr_ckpt, os.path.join(work, "f"), data, dev,
+                      ["biencoder=dpr", "train=dpr_nq",
+                       "train.train_sampling_rates="
+                       f"[{args.dpr_steps / file_steps}]"])
+        loss_f = [x for _, x, _ in steps_f]
+        ms_f = np.array([m for m, _, _ in steps_f])
+        flops_f = train_flops(BERT_BASE, TRAIN_B, TRAIN_LQ, TRAIN_LP,
+                              vdr=False)
+        log(f"phase 12 (f) DPR dpr_nq through cli.train: {len(loss_f)} "
+            f"steps, losses {[round(x, 4) for x in loss_f]}, step ms "
+            f"{[round(float(m), 1) for m in ms_f]} ({flops_f / 1e12:.2f} "
+            f"TFLOP a "
+            f"step, {flops_f / float(np.median(ms_f[1:])) / 1e9:.1f} "
+            f"TFLOP/s after the first); took {time.perf_counter() - t0:.1f} s")
+        require(len(loss_f) >= 3 and np.isfinite(loss_f).all(),
+                f"DPR training: {loss_f}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 if __name__ == "__main__":

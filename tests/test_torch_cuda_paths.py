@@ -1,9 +1,10 @@
-"""Card-only checks of the paths slice 5 added: chunked dense search with
-the bf16 GEMM's f32 output against the CPU's upcast route and float64,
-and the DPR and cross-modal encoders on the card against the same weights
-on the CPU. They need an NVIDIA GPU and skip elsewhere; they import no
-JAX, so they run on the card with ``--noconftest``. ``python3
-chip_smoke.py`` phase 11 runs the same paths at full size."""
+"""Card-only checks of the paths slices 5 and 6 added: chunked dense
+search with the bf16 GEMM's f32 output against the CPU's upcast route and
+float64, the DPR and cross-modal encoders on the card against the same
+weights on the CPU, and train steps on the card against the CPU's. They
+need an NVIDIA GPU and skip elsewhere; they import no JAX, so they run
+on the card with ``--noconftest``. ``python3 chip_smoke.py`` phases 11
+and 12 run the same paths at full size."""
 import numpy as np
 import pytest
 import torch
@@ -97,3 +98,58 @@ def test_image_encoder_on_the_card_equals_the_cpu(dev, tok):
         .astype(np.float32)
     a, b = cpu.embed(pixels, batch_size=2), gpu.embed(pixels, batch_size=2)
     np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
+
+
+def _train_step_run(dev, tok, dtype, steps=3, remat=False):
+    """``steps`` train steps of a tiny VDR bi-encoder (separate q and p,
+    dropout 0, weights from seed 3 on the CPU) on ``dev``: losses, grad
+    norms and the final weights."""
+    from vsearch_tpu_torch.models import vdr
+    from vsearch_tpu_torch.train import optim, step
+    from vsearch_tpu_torch.train.loss import VDRLossConfig
+
+    cfg = dict(BERT, vocab_size=tok.vocab_size, max_len=32, topk=8,
+               shift_vocab_num=5, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0, dtype=dtype)
+    mods = {}
+    for side, seed in (("q", 3), ("p", 4)):
+        ref = vdr.VDREncoder(vdr.VDREncoderConfig.from_dict(cfg),
+                             tokenizer=tok, seed=seed, device="cpu")
+        mods[side] = ref.module.float().to(dev)
+    module = torch.nn.ModuleDict(mods)
+    applies = [step.make_encoder_apply(mods[s], remat=remat) for s in "qp"]
+    tx = optim.get_optimizer([module], learning_rate=1e-3,
+                             schedule=optim.get_schedule_warmup(1, 1e-3))
+    state = step.TrainState.create(module, tx)
+    fn = step.make_train_step(*applies, step.TrainStepConfig(
+        vocab_size=tok.vocab_size, shift_vocab_num=5,
+        loss=VDRLossConfig(topk=8)))
+    rng = np.random.default_rng(5)
+    q = rng.integers(5, tok.vocab_size, size=(4, 16))
+    p = rng.integers(5, tok.vocab_size, size=(8, 32))
+    p[:4, :8] = q[:, :8]
+    p[:, 20:] = 0
+    batch = step.TrainBatch(torch.from_numpy(q).to(dev),
+                            torch.from_numpy(p).to(dev))
+    out = []
+    for i in range(steps):
+        state, m = fn(state, batch, i)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out, {k: v.float().cpu() for k, v in module.state_dict().items()}
+
+
+def test_train_steps_on_the_card_equal_the_cpu(dev, tok):
+    """f32, TF32 off: the step's loss and unclipped global norm on the card
+    equal the CPU's (rtol 1e-4 over 3 steps; the weights are not compared,
+    since Adam's first update, ~lr x sign(g), turns rounding in near-zero
+    gradients into lr-sized differences); in bf16 compute the weights stay
+    f32 and the loss agrees to bf16 rounding; remat changes nothing."""
+    cpu, _ = _train_step_run("cpu", tok, "float32")
+    gpu, _ = _train_step_run(dev, tok, "float32")
+    np.testing.assert_allclose(np.array(gpu), np.array(cpu), rtol=1e-4)
+    bf16, w_bf16 = _train_step_run(dev, tok, "bfloat16")
+    assert all(v.dtype == torch.float32 for v in w_bf16.values())
+    np.testing.assert_allclose(np.array(bf16)[:, 0], np.array(cpu)[:, 0],
+                               rtol=3e-2)
+    remat, _ = _train_step_run(dev, tok, "bfloat16", remat=True)
+    np.testing.assert_allclose(np.array(remat), np.array(bf16), rtol=1e-5)

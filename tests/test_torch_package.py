@@ -19,6 +19,8 @@ def test_import_with_jax_blocked():
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "sys.modules['orbax'] = None\n"
         "import vsearch_tpu_torch\n"
         "names = set()\n"
         "for m in pkgutil.walk_packages(vsearch_tpu_torch.__path__, "
@@ -36,9 +38,22 @@ def test_import_with_jax_blocked():
         " 'vsearch_tpu_torch.eval.qa_utils',\n"
         " 'vsearch_tpu_torch.eval.retrieval_eval',\n"
         " 'vsearch_tpu_torch.cli.score.eval_wiki21m',\n"
-        " 'vsearch_tpu_torch.cli.score.eval_beir'}\n"
+        " 'vsearch_tpu_torch.cli.score.eval_beir',\n"
+        " 'vsearch_tpu_torch.config', 'vsearch_tpu_torch.data.dataset',\n"
+        " 'vsearch_tpu_torch.data.batching',\n"
+        " 'vsearch_tpu_torch.data.iterators',\n"
+        " 'vsearch_tpu_torch.data.rag_dataset',\n"
+        " 'vsearch_tpu_torch.train.loss', 'vsearch_tpu_torch.train.optim',\n"
+        " 'vsearch_tpu_torch.train.step',\n"
+        " 'vsearch_tpu_torch.train.checkpoint',\n"
+        " 'vsearch_tpu_torch.train.info_card',\n"
+        " 'vsearch_tpu_torch.train.trainer', 'vsearch_tpu_torch.cli.train',\n"
+        " 'vsearch_tpu_torch.utils.neg_utils'}\n"
         "assert need <= names, need - names\n"
         "from vsearch_tpu_torch.retriever import Retriever\n"
+        "assert Retriever.retireve_negatives is Retriever.retrieve_negatives\n"
+        "from vsearch_tpu_torch.ops.sparse import build_cts_mask, "
+        "init_cts_mask_like\n"
         "from vsearch_tpu_torch.models.registry import get_encoder_classes\n"
         "for t in ('dpr', 'vdr_crossmodal_text', 'vdr_crossmodal_image'):\n"
         "    get_encoder_classes(t)\n"
@@ -57,7 +72,8 @@ def test_import_with_jax_blocked():
     for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py"))
     + ["chip_smoke.py"])
 def test_no_jax_import_lines(path):
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|vsearch_tpu)\b")
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|vsearch_tpu)\b")
     with open(os.path.join(ROOT, path)) as f:
         bad = [line for line in f if pat.match(line)]
     assert not bad, bad
@@ -143,7 +159,7 @@ def checkpoint(tmp_path_factory):
     "from_pretrained", "serve_cli", "binary_token_index", "sparse_index",
     "dense_index", "search_sparse_index", "search_dense_index",
     "beta_search", "convert_checkpoint", "trace", "device_memory_stats",
-    "eval_beir", "dpr", "crossmodal_text", "crossmodal_image"])
+    "eval_beir", "dpr", "crossmodal_text", "crossmodal_image", "train"])
 def test_new_entry_points_raise_without_cuda(checkpoint, entry):
     """The checkpoint loader, every CLI of ``cli/`` (no ``--device``), the
     encoders and the device readers of ``utils/`` raise without CUDA."""
@@ -197,6 +213,12 @@ def test_new_entry_points_raise_without_cuda(checkpoint, entry):
                                        "intermediate_size": 64, "width": 32,
                                        "heads": 2}),
                     tokenizer=make_tokenizer())
+        elif entry == "train":
+            from vsearch_tpu_torch.cli import train
+            train.main(["--config", os.path.join(ROOT, "conf",
+                                                 "train_ir_cfg.yaml"),
+                        f"model_path={d / 'ckpt'}",
+                        f"output_dir={d / 'train_out'}"])
         elif entry == "trace":
             from vsearch_tpu_torch.utils.profiling import trace
             with trace(str(d / "trace")):

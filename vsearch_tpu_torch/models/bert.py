@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -148,10 +149,17 @@ class BertEncoder(nn.Module):
         super().__init__()
         self.layer = nn.ModuleList(BertLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
+        # checkpoint each layer under autograd (training's remat)
+        self.remat = False
 
     def forward(self, hidden, attention_mask):
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layer:
-            hidden = layer(hidden, attention_mask)
+            if remat:
+                hidden = checkpoint(layer, hidden, attention_mask,
+                                    use_reentrant=False)
+            else:
+                hidden = layer(hidden, attention_mask)
         return hidden
 
 

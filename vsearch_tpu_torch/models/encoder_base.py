@@ -6,9 +6,16 @@ is no jit cache and no mesh placement).
 CUDA launches are asynchronous: the batch loop keeps every output on the
 device and copies once at the end, so the host tokenizes the next batch
 while the card runs the current one.
+
+A module's weights are stored in its compute dtype for inference
+(``build_module``); training keeps them in f32 (the trainer's master
+copy) and computes in the configured dtype under ``torch.autocast``
+(``compute_context``), and ``embed`` then does the same on the live
+weights.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -33,6 +40,31 @@ def build_module(module_cls, config, init: Callable, seed: int,
     if state_dict is not None:  # cast to the compute dtype on load
         module.load_state_dict(state_dict)
     return module
+
+
+def compute_dtype(config) -> torch.dtype:
+    """The dtype an encoder computes in: its BERT's ``dtype`` (f32 for
+    encoders without one, such as the image encoder)."""
+    return getattr(getattr(config, "bert", None), "dtype", torch.float32)
+
+
+def compute_context(module: nn.Module, dtype: torch.dtype):
+    """``torch.autocast`` to ``dtype`` when ``module`` stores wider weights
+    than it computes in (f32 weights of a bf16 encoder under training),
+    else a no-op context."""
+    p = next(module.parameters())
+    if dtype == torch.float32 or p.dtype == dtype:
+        return contextlib.nullcontext()
+    return torch.autocast(p.device.type, dtype=dtype)
+
+
+def set_remat(module: nn.Module, on: bool) -> None:
+    """Turn activation checkpointing on or off in every submodule that
+    offers it (a ``remat`` attribute: BERT's layer stack, the VDR head's
+    pooling). It applies only where gradients are being recorded."""
+    for sub in module.modules():
+        if hasattr(sub, "remat"):
+            sub.remat = on
 
 
 def length_buckets(max_len: int, min_bucket: int = 32) -> List[int]:
@@ -96,11 +128,13 @@ class TextEncoderBase:
         texts (the last one padded with empty rows). Returns
         ``(device output, real row count)`` per batch."""
         outs = []
+        ctx = compute_context(self.module, compute_dtype(self.config))
         for start in range(0, len(texts), batch_size):
             chunk = texts[start: start + batch_size]
             enc = self._pad_batch(self.encode(chunk, max_len=max_len),
                                   batch_size)
             t = [torch.from_numpy(enc[k]).to(self.device).long()
                  for k in ("input_ids", "token_type_ids", "attention_mask")]
-            outs.append((fn(*t), len(chunk)))
+            with ctx:
+                outs.append((fn(*t), len(chunk)))
         return outs

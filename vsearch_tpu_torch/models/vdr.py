@@ -17,6 +17,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import elu1p
 from ..ops.sparse import build_bow_mask, build_topk_mask
@@ -66,6 +67,8 @@ class VDRModule(nn.Module):
         self.config = config
         self.bert_model = BertModel(config.bert)
         self.ln = nn.LayerNorm(config.bert.hidden_size, eps=1e-5)
+        # checkpoint the max-pool's vocab chunks under autograd (remat)
+        self.remat = False
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         cfg = self.config
@@ -86,7 +89,8 @@ class VDRModule(nn.Module):
         else:
             valid = attention_mask.bool()
         if cfg.pooling == "max":
-            emb = elu1p(_masked_max_project(h, proj, valid))
+            emb = elu1p(_masked_max_project(
+                h, proj, valid, self.remat and torch.is_grad_enabled()))
         elif cfg.pooling == "mean":
             logits = (h @ proj.T).float()  # [B, L, V']
             validf = valid[:, :, None].float()
@@ -105,12 +109,25 @@ class VDRModule(nn.Module):
         return emb
 
 
+def _chunk_max(hx: torch.Tensor, proj: torch.Tensor, invalid: torch.Tensor
+               ) -> torch.Tensor:
+    """[B, chunk] max over valid positions of one vocab chunk's logits.
+    ``amax`` splits the gradient evenly among tied maxima, as JAX's max
+    does."""
+    b, l = invalid.shape[:2]
+    lg = (hx @ proj.T).float().view(b, l, -1)
+    return lg.masked_fill(invalid, float("-inf")).amax(dim=1)
+
+
 def _masked_max_project(h: torch.Tensor, proj: torch.Tensor,
-                        valid: torch.Tensor) -> torch.Tensor:
+                        valid: torch.Tensor, remat: bool = False
+                        ) -> torch.Tensor:
     """max over valid positions of h @ proj.T, [B, V'] f32, computed in
     vocab chunks so the [B, L, V'] logits never exist whole (at rerank
     batch shapes they would be ~1 GB a batch). Rows with no valid
-    position give -inf (elu1p maps it to 0)."""
+    position give -inf (elu1p maps it to 0). Under autograd each chunk's
+    f32 logits are kept for the backward pass, unless ``remat``
+    recomputes them there chunk by chunk."""
     b, l, _ = h.shape
     hx = h.reshape(b * l, -1)
     v = proj.shape[0]
@@ -118,9 +135,12 @@ def _masked_max_project(h: torch.Tensor, proj: torch.Tensor,
     out = torch.empty((b, v), dtype=torch.float32, device=h.device)
     invalid = ~valid[:, :, None]
     for s in range(0, v, chunk):
-        lg = (hx @ proj[s:s + chunk].T).float().view(b, l, -1)
-        out[:, s:s + chunk] = lg.masked_fill(invalid, float("-inf")) \
-            .amax(dim=1)
+        if remat:
+            out[:, s:s + chunk] = checkpoint(
+                _chunk_max, hx, proj[s:s + chunk], invalid,
+                use_reentrant=False)
+        else:
+            out[:, s:s + chunk] = _chunk_max(hx, proj[s:s + chunk], invalid)
     return out
 
 

@@ -35,3 +35,19 @@ def build_bow_mask(text_ids: torch.Tensor, vocab_size: int = 30522,
         denom = torch.linalg.vector_norm(bow, dim=-1, keepdim=True)
         bow = bow / torch.clamp(denom, min=1e-12)
     return bow
+
+
+def init_cts_mask_like(embs: torch.Tensor) -> torch.Tensor:
+    """Round-robin assignment of vocab slots to batch rows: slot ``v``
+    belongs to row ``v % batch_size`` ([N, V] bool)."""
+    batch_size, vocab_size = embs.shape
+    slot_owner = torch.arange(vocab_size, device=embs.device) % batch_size
+    return slot_owner[None, :] == torch.arange(batch_size,
+                                               device=embs.device)[:, None]
+
+
+def build_cts_mask(bow_embs: torch.Tensor) -> torch.Tensor:
+    """Contrastive-mask regularizer: each row's round-robin vocab slots
+    that are NOT in the batch's bag-of-words union ([N, V] bool)."""
+    bow_batch = bow_embs.sum(0) > 0  # [V] union of active slots
+    return init_cts_mask_like(bow_embs) & ~bow_batch[None, :]

@@ -6,20 +6,23 @@ search (through the binary-support proxy on large sparse indexes), dense
 (DPR) search, cross-modal text <-> image search, and beta
 (semi-parametric: binary first stage + on-the-fly rerank) search;
 tokenizer-only BoT index construction; checkpoints through the
-bi-encoder's ``save_pretrained``/``from_pretrained``. Negative mining
-for training comes with the training slice.
+bi-encoder's ``save_pretrained``/``from_pretrained``; negative mining
+for training (``retrieve_negatives``).
 """
 from __future__ import annotations
 
 import dataclasses
+import random as pyrandom
 import time
-from typing import Any, Dict, Optional, Sequence, Union
+import unicodedata
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .biencoder import BiEncoder, BiEncoderConfig, join_corpus, takes_images
+from .eval.qa_utils import has_answer
 from .index import (BoTIndex, DenseIndex, IndexType, SearchResults,
                     SparseIndex)
 
@@ -119,6 +122,54 @@ class Retriever(BiEncoder):
         order = np.argsort(-rescored, axis=1)
         return SearchResults(np.take_along_axis(ret_ids, order, axis=1),
                              np.take_along_axis(rescored, order, axis=1))
+
+    # -- negative mining (reference retriever.py:150-205) --------------------
+    def retrieve_negatives(self, q_emb, answers: List[List[str]],
+                           ret_neg_num: int = 1, ret_topk: int = 100,
+                           pool_size: int = 20, ret_dropout: float = 0.0,
+                           index=None, seed: Optional[int] = None
+                           ) -> List[List[str]]:
+        """Mine in-training negatives: retrieve top-k, drop
+        answer-containing passages, sample ``ret_neg_num`` per query.
+        With equal index, queries, answers and ``seed`` it picks the JAX
+        package's negatives (the same first stage, then Python's
+        ``random.Random(seed)``)."""
+        index = index if index is not None else self.index
+        if index is None:
+            raise ValueError("no index found")
+        if not answers:
+            raise ValueError("no answer strings found")
+        if not (isinstance(q_emb, str) or (
+                isinstance(q_emb, list) and q_emb
+                and isinstance(q_emb[0], str))):
+            # embeddings normalize to an array; string queries reach
+            # process_query untouched
+            q_emb = np.asarray(q_emb)
+        # the seed covers BOTH the sampling below and the query-dropout rng
+        results = self.retrieve(
+            q_emb, a=768, k=ret_topk, dropout=ret_dropout, index=index,
+            rng=np.random.default_rng(seed) if seed is not None else None)
+        rnd = pyrandom.Random(seed)
+        batch_neg_texts: List[List[str]] = []
+        for sample_id, sample_ret in enumerate(np.asarray(results.ids)):
+            pool: List[int] = []
+            for ret_ind in sample_ret.tolist():
+                text = _passage_text(index.get_sample(ret_ind))
+                if not has_answer(answers[sample_id], text, "string"):
+                    pool.append(ret_ind)
+                if len(pool) >= pool_size:
+                    break
+            if len(pool) < ret_neg_num:
+                pad = ret_neg_num - len(pool)
+                pool += rnd.sample(range(len(index)), pad)
+            chosen = rnd.sample(pool, ret_neg_num)
+            batch_neg_texts.append(
+                [_normalize_text(_passage_text(index.get_sample(i)))
+                 for i in chosen])
+        return batch_neg_texts
+
+    # the reference's public spelling, kept as an alias
+    retireve_negatives = retrieve_negatives
 
     # -- index building ------------------------------------------------------
     def build_index(self, texts: Sequence[Any], batch_size: int = 32,
@@ -237,6 +288,13 @@ def _sparse_rerank_scores(cols: torch.Tensor, vals: torch.Tensor,
     c = cols[inv].long().clamp_max(v_dim)  # [b, k, kk]
     g = torch.gather(qpad[:, None, :].expand(b, k, v_dim + 1), 2, c)
     return (g * vals[inv].float()).sum(dim=2)
+
+
+def _normalize_text(text: str) -> str:
+    """Unicode-quote/newline normalization applied to passages
+    (reference: src/ir/data/biencoder_dataset.py:27-29)."""
+    text = text.replace("’", "'").replace("\n", " ")
+    return unicodedata.normalize("NFD", text)
 
 
 def _passage_text(sample: Any) -> str:

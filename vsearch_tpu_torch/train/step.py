@@ -1,0 +1,169 @@
+"""The training step (counterpart of ``vsearch_tpu/train/step.py``).
+
+One call runs both encoder forwards in train mode, the bag-of-words
+masks, the 4-term semi-parametric InfoNCE over in-batch and hard
+negatives, the backward pass, the global norm and its clip, and the AdamW
+update. PyTorch runs it eagerly; nothing in it waits for the device, so
+consecutive steps queue on the card.
+
+Weights are f32 (the optimizer's master copy); the forward computes in the
+encoder's configured dtype under ``torch.autocast`` (``models.encoder_base
+.compute_context``). Unlike flax's ``dtype=bfloat16``, which runs every
+layer in bf16, autocast keeps LayerNorm, softmax and the residual stream in
+f32 and casts the inputs of each matmul to bf16.
+
+Dropout draws from the global generator, forked and seeded for each step
+from the caller's integer (the trainer derives it from
+``(seed, epoch, iteration)``), so a step is repeatable, a resumed run
+repeats the masks of an uninterrupted one, and ``remat`` recomputes the
+same masks (``torch.utils.checkpoint`` restores the generator's state).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+from torch import nn
+
+from ..models.encoder_base import compute_context, compute_dtype, set_remat
+from ..ops.sparse import build_bow_mask
+from .loss import VDRLossConfig, compute_dpr_loss, compute_vdr_loss
+from .optim import Optimizer
+
+
+class TrainBatch(NamedTuple):
+    """Device-side batch: queries [N, Lq], passages [M, Lp] (int64, 0 is
+    padding) with positives in the first N rows (reference
+    biencoder_utils.py:86-87)."""
+
+    q_ids: torch.Tensor
+    p_ids: torch.Tensor
+
+
+class TrainState:
+    """The step count, the trained module (one encoder's module when it is
+    shared, else an ``nn.ModuleDict`` of ``q`` and ``p``: its parameters
+    are the f32 weights) and the optimizer over it."""
+
+    def __init__(self, module: nn.Module, tx: Optimizer, step: int = 0):
+        self.module = module
+        self.tx = tx
+        self.step = step
+
+    @classmethod
+    def create(cls, module: nn.Module, tx: Optimizer) -> "TrainState":
+        return cls(module, tx)
+
+    @property
+    def params(self):
+        """The f32 weights by name (``q.``/``p.`` prefixes unless the
+        encoder is shared)."""
+        return self.module.state_dict()
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    encoder_type: str = "vdr"  # 'vdr' | 'dpr'
+    vocab_size: int = 30522
+    shift_vocab_num: int = 999
+    norm_bow: bool = False
+    loss: VDRLossConfig = dataclasses.field(default_factory=VDRLossConfig)
+
+
+def step_seed(seed: int, epoch: int, iteration: int) -> int:
+    """A 63-bit seed for the step's dropout, distinct for every
+    ``(seed, epoch, iteration)``."""
+    import numpy as np
+
+    words = np.random.SeedSequence([seed, epoch, iteration]) \
+        .generate_state(2, np.uint32)
+    return (int(words[0]) << 31 | int(words[1]) >> 1) & ((1 << 63) - 1)
+
+
+def _fork_devices(t: torch.Tensor):
+    return [t.device.index or 0] if t.device.type == "cuda" else []
+
+
+def make_train_step(apply_q: Callable, apply_p: Callable,
+                    cfg: TrainStepConfig, mesh=None,
+                    shared_params: bool = False) -> Callable:
+    """Build the train step ``step_fn(state, batch, seed) -> (state,
+    metrics)``; ``state`` is updated in place and returned. Metrics are
+    device scalars: ``loss``, ``grad_norm`` (the unclipped global norm),
+    ``correct_parametric``, ``correct_semiparametric``, ``batch_size``.
+
+    apply_q/apply_p: fns (module, ids) -> embeddings (``make_encoder_apply``).
+    With ``shared_params`` both run the state's one module (reference
+    shared_encoder, biencoder.py:57-59), else its ``q`` and ``p``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "a device mesh (data/tensor parallel training) is the port's "
+            "slice 7 (more than one GPU); this step runs on one device")
+
+    def loss_fn(state: TrainState, batch: TrainBatch):
+        m_q = state.module if shared_params else state.module["q"]
+        m_p = state.module if shared_params else state.module["p"]
+        q_emb = apply_q(m_q, batch.q_ids)
+        p_emb = apply_p(m_p, batch.p_ids)
+        if cfg.encoder_type == "vdr":
+            q_bin, p_bin = (build_bow_mask(ids, vocab_size=cfg.vocab_size,
+                                           shift_num=cfg.shift_vocab_num,
+                                           norm=cfg.norm_bow,
+                                           dtype=emb.dtype)
+                            for ids, emb in ((batch.q_ids, q_emb),
+                                             (batch.p_ids, p_emb)))
+            return compute_vdr_loss(q_emb, p_emb, q_bin, p_bin, cfg.loss)
+        if cfg.encoder_type == "dpr":
+            return compute_dpr_loss(q_emb, p_emb, cfg.loss)
+        raise NotImplementedError(cfg.encoder_type)
+
+    def step_fn(state: TrainState, batch: TrainBatch, seed: int):
+        state.tx.zero_grad()
+        state.module.train()
+        try:
+            with torch.random.fork_rng(devices=_fork_devices(batch.q_ids),
+                                       device_type="cuda"):
+                torch.manual_seed(seed)
+                loss, metrics = loss_fn(state, batch)
+                loss.backward()
+        finally:
+            state.module.eval()
+        norm = state.tx.step()
+        state.step += 1
+        metrics = dict(metrics)
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = norm
+        return state, metrics
+
+    return step_fn
+
+
+def make_encoder_apply(module: nn.Module, deterministic: bool = False,
+                       remat: bool = False) -> Callable:
+    """The ``(module, ids) -> embeddings`` function of the train step for
+    an encoder ``module``. Attention mask and token types are derived from
+    the ids (ids != 0, zeros — reference loss_utils.py:38-41); the forward
+    computes in the module's configured dtype. ``deterministic`` turns
+    dropout off.
+
+    ``remat=True`` checkpoints ``module``'s BERT layers and the VDR head's
+    pooling chunks (``torch.utils.checkpoint``, non-reentrant), so the
+    backward pass recomputes them instead of keeping every layer's
+    activations and the [B*L, chunk] f32 projection logits of the
+    max-pool (~1.9 GB for 64 passages of 256 tokens at V'=29,523).
+    """
+    set_remat(module, remat)
+    dtype = compute_dtype(module.config)
+
+    def apply(mod: nn.Module, ids: torch.Tensor) -> torch.Tensor:
+        mod.train(not deterministic)
+        with compute_context(mod, dtype):
+            return mod(ids, torch.zeros_like(ids), (ids != 0).long())
+
+    return apply
+
+
+__all__ = ["TrainBatch", "TrainState", "TrainStepConfig", "make_train_step",
+           "make_encoder_apply", "step_seed"]
