@@ -91,7 +91,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      state and replays its next step's loss within ``RESUME_RTOL`` (a
      second resume is printed against the first as a control, with the
      sums of gradients and weights after each step); (f)
-     ``--dpr-steps`` steps of dpr_nq with a BERT-base DPR bi-encoder.
+     ``--dpr-steps`` steps of dpr_nq with a BERT-base DPR bi-encoder;
+ 13. more than one device, over a mesh of ``MESH_SHARDS`` (4) virtual
+     shards of the card (``make_mesh(devices=[cuda:0] * 4)``); launch
+     counts zeroed before each sharded run and read after it, the
+     one-device references run outside: (a) the phase-4 1,048,576-row
+     index, its shards packed by kernel #1 a shard, searched with
+     bucketed (#3) and exact (#2) selection, equal to one device bit for
+     bit under dyadic weights, recall against exact >= 0.99; (d) beta
+     search with rerank through ``Retriever.to_mesh`` (index and rerank
+     embeds sharded) against one device; (b) phase 8's 21,015,324 rows
+     remade on the card, the block tier sharded as views of the compact
+     ELL (#1 and #4 a block), held against phase 8's one-device first
+     stage and exact scores, with both first-stage times; (c) a dense
+     index of phase 11's size sharded as views, against one device; (e)
+     ``cli.serve --mesh_dp 1`` against the unsharded server over HTTP,
+     and ``--mesh_dp 2`` refused with the mesh arithmetic; (f)
+     ``cli.train`` as rank 0 of a one-rank NCCL group (``WORLD_SIZE=1``,
+     in a process of its own) against one process: step 1's loss to 1e-6,
+     later steps within ``DIST_RTOL``. No multi-card speed is measured.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -149,6 +167,16 @@ TRAIN_B, TRAIN_LQ, TRAIN_LP = 32, 128, 256
 RESUME_RTOL = 1e-6
 # the card; a CPU rehearsal of the control flow patches this to "cpu"
 DEVICE = "cuda"
+MESH_SHARDS = 4  # phase 13's virtual shards of the card
+# phase 13 (d) sharded beta search against one device: the rerank embeds
+# pieces of 8 passages where one device embeds 32, and bf16 GEMMs of
+# other shapes may round otherwise; phase 7's rerank tolerance
+RERANK_RTOL = 2e-2
+DIST_STEPS = 4  # phase 13 (f): steps of cli.train as a one-rank group
+# (f)'s later steps against one process's: phase 12 (e) saw two runs of
+# one state drift 0.1-4% in loss after the first step (nondeterministic
+# backward reductions on the card)
+DIST_RTOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -713,6 +741,19 @@ def main() -> int:
             "pack_ell": "pack", "bitpack_scores": "scores",
             "bucketed_keys": "bucketed",
             "int8_bucketed_keys": "int8_bucketed"}[e["name"]]]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 13: more than one device (virtual shards of the card) ---------
+    launch_13 = phase_mesh(torch, bp, dev, args, retriever, tok, words,
+                           texts, queries, bot_ell, large, smi)
+    for e in kernels:  # the launches of phase 13's sharded paths
+        e["launches"] += launch_13[{
+            "pack_ell": "pack", "bitpack_scores": "scores",
+            "bucketed_keys": "bucketed",
+            "int8_bucketed_keys": "int8_bucketed"}[e["name"]]]
+    require(all(launch_13.values()),
+            f"phase 13's sharded paths skipped a kernel: {launch_13}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -828,7 +869,9 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
     sweep; kernels #4, #3 (buckets 16 and 8) and #2 on one full block.
     Returns the launch counts of the three paths (block tier, exact sweep,
     stream tier), kernel #4's measurements, kernel #3's at bucket 8 and
-    kernel #2's at the block."""
+    kernel #2's at the block, and for phase 13 the query embeddings of the
+    checked batches, their exact k-th scores and block-tier first stages
+    with its milliseconds."""
     from vsearch_tpu_torch.index import BoTIndex
     from vsearch_tpu_torch.index.bot_build import build_bot_ell
     from vsearch_tpu_torch.ops.ell import ELLMatrix, widen_cols
@@ -920,11 +963,12 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
     need = n_blocks * len(q_embs)
     require(launch_sweep["scores"] >= need and launch_sweep["pack"] >= need,
             f"exact sweep skipped kernels: {launch_sweep}, need {need}")
-    firsts = []
+    firsts, first_ms = [], []
     for i, qe in enumerate(q_embs):
         t0 = time.perf_counter()
         firsts.append(idx.search(qe, k=K))
         secs = time.perf_counter() - t0
+        first_ms.append(secs * 1e3)
         rec = recall_by_threshold(torch, qe, firsts[-1].ids, refs[i],
                                   cols_h, nnz_h, v)
         log(f"  batch {i}: block-tier first stage {secs * 1e3:.1f} ms; "
@@ -1050,7 +1094,8 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} "
         "GiB")
     out.update(launch_block=launch_block, launch_sweep=launch_sweep,
-               launch_stream=launch_stream)
+               launch_stream=launch_stream, q_embs=q_embs, refs=refs,
+               firsts=firsts, first_ms=first_ms)
     return out
 
 
@@ -2599,6 +2644,417 @@ def phase_train(torch, bp, dev, args, retriever, tok, words, texts,
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+# -- phase 13 -----------------------------------------------------------------
+def card_scores(torch, q_rows, ids, cols, nnz, v: int):
+    """``host_scores`` on the card, for an ELL that lives there: each
+    query's f32 weights summed (in f64) over its rows' ids. q_rows [B, V]
+    numpy, ids [B, k] numpy -> [B, k] numpy f32."""
+    dev = cols.device
+    ids_t = torch.from_numpy(ids).to(dev)
+    rows = cols[ids_t].long().clamp(0, v)  # [B, k, nnz_pad]; sentinel -> v
+    valid = (torch.arange(cols.shape[1], device=dev)
+             < nnz[ids_t][..., None])
+    q = torch.from_numpy(q_rows).to(dev, torch.float64)
+    qpad = torch.cat([q, torch.zeros((len(q), 1), dtype=q.dtype,
+                                     device=dev)], dim=1)
+    g = torch.gather(qpad[:, None, :].expand(-1, ids.shape[1], -1), 2, rows)
+    return (g * valid).sum(dim=-1).float().cpu().numpy()
+
+
+def timed_search(torch, fn):
+    """(result, host milliseconds) of ``fn()`` with the card synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_mesh(torch, bp, dev, args, retriever, tok, words, texts, queries,
+               bot_ell, large, smi: str) -> dict:
+    """Phase 13: the port's mesh paths over ``MESH_SHARDS`` virtual shards
+    of the card, each against its one-device answer. Returns the launch
+    counts of the sharded paths (each zeroed just before the sharded run
+    and read just after; the one-device references run outside)."""
+    import io
+    import shutil
+    import tempfile
+    import threading
+
+    from vsearch_tpu_torch.cli.build_index import binary_token_index
+    from vsearch_tpu_torch.cli.serve import make_parser, prepare_retriever
+    from vsearch_tpu_torch.index import BoTIndex, DenseIndex
+    from vsearch_tpu_torch.ops.ell import ELLMatrix
+    from vsearch_tpu_torch.parallel.mesh import make_mesh
+    from vsearch_tpu_torch.serve import serve
+
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+    counts = {name: 0 for name in bp.LAUNCHES}
+
+    def sharded(fn):
+        """Run ``fn`` with the launch counts zeroed before and added to
+        ``counts`` after."""
+        torch.cuda.synchronize()
+        bp.reset_launch_counts()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            for name, c in bp.LAUNCHES.items():
+                counts[name] += c
+
+    t_phase = time.perf_counter()
+    log(f"phase 13 (more than one device): {mesh} - {MESH_SHARDS} virtual "
+        f"shards of one card ({smi}); no multi-card speed is measured")
+
+    # -- (a) the resident index, sharded ---------------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 13)
+    ell = dataclasses.replace(bot_ell, cols=bot_ell.cols.to(dev),
+                              nnz=bot_ell.nnz.to(dev))
+    one = BoTIndex(device=dev)
+    one.set_ell(ell)
+    one.data = texts
+    one.build_bitpack()
+    n, v = ell.shape[0], ell.num_cols
+    q_emb = retriever.process_query(queries[:B])
+    dy = (rng.integers(0, 129, size=q_emb.shape) / 16.0).astype(np.float32)
+    want, ms_one = {}, {}
+    for sel in ("bucketed", "exact"):
+        one.selection = sel
+        for name, qq in (("dyadic", dy), ("query", q_emb)):
+            want[sel, name], ms_one[sel, name] = timed_search(
+                torch, lambda: one.search(qq, k=K))
+    exact = bp.bitpack_scores(torch.from_numpy(q_emb).to(dev), one.bitmat)
+    kth = bp.top_k(exact, K)[0][:, K - 1:]
+    sh = BoTIndex(device=dev)
+    sh.set_ell(ell)
+    sh.data = texts
+    got, ms_sh = {}, {}
+
+    def run_a():
+        sh.to_mesh(mesh)  # kernel #1 packs each shard on its device
+        for sel in ("bucketed", "exact"):
+            sh.selection = sel
+            for name, qq in (("dyadic", dy), ("query", q_emb)):
+                got[sel, name], ms_sh[sel, name] = timed_search(
+                    torch, lambda: sh.search(qq, k=K))
+
+    before = dict(counts)
+    sharded(run_a)
+    la = {k: counts[k] - before[k] for k in counts}
+    for key in got:
+        a, b = got[key], want[key]
+        same = (np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.scores, b.scores))
+        if key[1] == "dyadic":
+            require(same, f"(a) sharded {key} differs from one device")
+        else:
+            require(same or same_topk(b.ids, b.scores, a.ids, a.scores,
+                                      1e-6), f"(a) sharded {key} differs")
+        log(f"  (a) {key[0]} selection, {key[1]} weights: sharded "
+            f"{'==' if same else 'within rtol 1e-6 of'} one device; first "
+            f"stage {ms_sh[key]:.1f} ms sharded, {ms_one[key]:.1f} ms one "
+            f"device")
+    hit = torch.gather(exact, 1, torch.from_numpy(
+        got["bucketed", "query"].ids).to(dev))
+    rec = float((hit >= kth - 1e-3 * kth.clamp_min(1.0)).float().mean())
+    log(f"phase 13 (a) resident index, {n} rows over {MESH_SHARDS} shards "
+        f"of {sh._shards.rows_per} rows (whole 1024-row blocks): dyadic "
+        f"weights bit for bit; bucketed recall vs exact {rec:.4f}; "
+        f"launches {la}; took {time.perf_counter() - t0:.1f} s")
+    require(rec >= 0.99, f"(a) sharded recall {rec}")
+    require(la["pack"] >= MESH_SHARDS and la["bucketed"] >= 2 * MESH_SHARDS
+            and la["scores"] >= 2 * MESH_SHARDS,
+            f"(a) sharded path skipped kernels: {la}")
+    del exact, hit, sh
+
+    # -- (d) beta search with rerank through Retriever.to_mesh ----------------
+    t0 = time.perf_counter()
+    one.selection = "auto"
+    qs = queries[:B]
+    base = retriever.retrieve(qs, k=K, rerank=True, index=one)
+    ms_base = dict(retriever.last_timings)
+    one.bitmat = None  # the sharded retriever packs its own shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    retriever.index = one
+    encs = (retriever.encoder_q, retriever.encoder_p)
+
+    def run_d():
+        retriever.to_mesh(mesh)
+        return retriever.retrieve(qs, k=K, rerank=True)
+
+    before = dict(counts)
+    try:
+        res = sharded(run_d)
+    finally:
+        retriever.index = None
+        for enc in encs:  # later phases embed on one device
+            enc._mesh = None
+    ld = {k: counts[k] - before[k] for k in counts}
+    same = (np.array_equal(res.ids, base.ids)
+            and np.array_equal(res.scores, base.scores))
+    gap = float(np.abs(res.scores - base.scores).max()
+                / max(float(np.abs(base.scores).max()), 1e-6))
+    log(f"phase 13 (d) beta search with rerank, Retriever.to_mesh (index "
+        f"and rerank embeds over {MESH_SHARDS} shards): "
+        f"{'ids and scores == one device' if same else 'largest relative score gap ' + str(gap)}"
+        f", {int((res.ids != base.ids).sum())} of {res.ids.size} ids "
+        f"differ; stages sharded "
+        + ", ".join(f"{k} {t * 1e3:.1f} ms"
+                    for k, t in retriever.last_timings.items())
+        + "; one device " + ", ".join(f"{k} {t * 1e3:.1f} ms"
+                                      for k, t in ms_base.items())
+        + f"; launches {ld}; took {time.perf_counter() - t0:.1f} s")
+    require(same or same_topk(base.ids, base.scores, res.ids, res.scores,
+                              RERANK_RTOL),
+            f"(d) sharded beta search differs (gap {gap})")
+    require(ld["pack"] >= MESH_SHARDS and ld["bucketed"] >= MESH_SHARDS,
+            f"(d) skipped kernels: {ld}")
+    del one, ell, res, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) phase 8's rows, the block tier sharded --------------------------
+    t0 = time.perf_counter()
+    nb, vb = args.wiki_rows, len(words)
+    cols_d, nnz_d = synth_bot_rows(torch, dev, nb, args.seed, vb)
+    blk = BoTIndex(search_mode="block", device=dev)
+    blk.set_ell(ELLMatrix(cols=cols_d, nnz=nnz_d, vals=None, num_cols=vb,
+                          sentinel_padded=True))
+    torch.cuda.synchronize()
+    t_made = time.perf_counter() - t0
+    firsts, ms_b = [], []
+
+    def run_b():
+        blk.to_mesh(mesh)  # the compact ELL, split as views
+        for qe in large["q_embs"]:
+            res, ms = timed_search(torch, lambda: blk.search(qe, k=K))
+            firsts.append(res)
+            ms_b.append(ms)
+
+    before = dict(counts)
+    sharded(run_b)
+    lb = {k: counts[k] - before[k] for k in counts}
+    bases = {id(p.cols._base) for p in blk._mesh_ell.parts}
+    views = len(bases) == 1 and id(None) not in bases
+    for i, (res, qe) in enumerate(zip(firsts, large["q_embs"])):
+        one_res = large["firsts"][i]
+        qb = torch.from_numpy(qe).to(torch.bfloat16).float().numpy()
+        got_s = card_scores(torch, qb, res.ids, cols_d, nnz_d, vb)
+        kth_b = large["refs"][i][:, -1:]
+        rec = float(np.mean(got_s >= kth_b - 1e-3 * np.maximum(kth_b, 1.0)))
+        overlap = np.mean([len(set(a) & set(b)) / K for a, b in
+                           zip(res.ids.tolist(), one_res.ids.tolist())])
+        exact_ok = np.allclose(res.scores, card_scores(
+            torch, qe, res.ids, cols_d, nnz_d, vb), rtol=1e-6, atol=0)
+        log(f"  (b) batch {i}: sharded block-tier first stage "
+            f"{ms_b[i]:.1f} ms (phase 8, one device: "
+            f"{large['first_ms'][i]:.1f} ms); recall vs exact {rec:.4f}; "
+            f"{overlap:.4f} of phase 8's ids; scores == exact f32 sums "
+            f"(rtol 1e-6): {exact_ok}")
+        require(rec >= 0.99 and overlap >= 0.99 and exact_ok,
+                f"(b) batch {i}: recall {rec}, overlap {overlap}")
+    log(f"phase 13 (b) block tier: {nb} rows remade on the card in "
+        f"{t_made:.1f} s; compact ELL {tuple(blk._mesh_ell.parts[0].cols.shape)}"
+        f" x {MESH_SHARDS} shards ({'views' if views else 'copies'}); "
+        f"launches {lb}; took {time.perf_counter() - t0:.1f} s")
+    require(views, "(b) the shards copied the compact ELL")
+    need = -(-blk._mesh_ell.rows_per // blk.stream_block_rows) \
+        * MESH_SHARDS * len(firsts)
+    require(lb["pack"] >= need and lb["int8_bucketed"] >= need,
+            f"(b) skipped kernels: {lb}, need {need}")
+    del blk, cols_d, nnz_d, firsts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) a dense index of phase 11's size, sharded as views --------------
+    t0 = time.perf_counter()
+    full = torch.empty((args.dpr_rows, DPR_DIM), dtype=torch.bfloat16,
+                       device=dev)
+    synth_dense_rows(torch, full, 0, torch.linspace(8.0, 14.0, 1024),
+                     args.seed + 12)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    qd = torch.randn((B, DPR_DIM), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    didx = DenseIndex(device=dev)
+    didx.set_vectors(full)
+    d_one, ms_d1 = timed_search(torch, lambda: didx.search(qd, k=K))
+    didx.to_mesh(mesh)
+    views = all(p._base is full for p in didx._shards.parts)
+    d_sh, ms_ds = timed_search(torch, lambda: didx.search(qd, k=K))
+    same = (np.array_equal(d_sh.ids, d_one.ids)
+            and np.array_equal(d_sh.scores, d_one.scores))
+    log(f"phase 13 (c) dense: {args.dpr_rows} x {DPR_DIM} bf16 rows "
+        f"({full.numel() * 2 / 1e9:.2f} GB) over {MESH_SHARDS} shards "
+        f"({'views' if views else 'copies'}): "
+        f"{'ids and scores ==' if same else 'within rtol 1e-5 of'} one "
+        f"device; search {ms_ds:.1f} ms sharded, {ms_d1:.1f} ms one device "
+        f"(host clock, first call each); took "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(views and (same or same_topk(d_one.ids, d_one.scores, d_sh.ids,
+                                         d_sh.scores, 1e-5)),
+            "(c) sharded dense search differs or copied the index")
+    del didx, full, qd, d_one, d_sh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_13_")
+    try:
+        # -- (e) cli.serve --mesh_dp ------------------------------------------
+        t0 = time.perf_counter()
+        served = texts[:args.served_rows]
+        ckpt, corpus = f"{work}/ckpt", f"{work}/corpus.jsonl"
+        retriever.save_pretrained(ckpt)
+        with open(corpus, "w") as f:
+            f.writelines(json.dumps({"text": t}) + "\n" for t in served)
+        dv = ["--device", str(dev)]
+        binary_token_index.main(["--text_file", corpus, "--save_file",
+                                 f"{work}/bot.npz", "--tokenizer", ckpt,
+                                 "--num_shift", "999", *dv])
+        argv = ["--checkpoint", ckpt, "--index_file", f"{work}/bot.npz",
+                "--index_type", "bag_of_token", "--data_file", corpus,
+                "--warmup", *dv]
+        reqs = [queries[2 * i:2 * i + 2] for i in range(8)]
+        answers = []
+        for extra in ([], ["--mesh_dp", "1"]):
+            def run_e():
+                ap = make_parser()
+                r = prepare_retriever(ap.parse_args(argv + extra), ap)
+                server = serve(r, host="127.0.0.1", port=0)
+                url = f"http://127.0.0.1:{server.server_address[1]}"
+                thread = threading.Thread(target=server.serve_forever,
+                                          daemon=True)
+                thread.start()
+                try:
+                    return r, [http(url + "/search", {
+                        "queries": qq, "k": K, "rerank": True})
+                        for qq in reqs]
+                finally:
+                    server.shutdown()
+                    server.server_close()
+                    thread.join(10)
+
+            before = dict(counts)
+            r, out = sharded(run_e) if extra else run_e()
+            le = {k: counts[k] - before[k] for k in counts}
+            if extra:
+                require(r.index._mesh is not None, "(e) index not sharded")
+            answers.append(out)
+            del r
+        gap, ndiff = 0.0, 0
+        for a, b in zip(*answers):
+            ia, ib = np.asarray(a["ids"]), np.asarray(b["ids"])
+            sa = np.asarray(a["scores"], np.float32)
+            sb = np.asarray(b["scores"], np.float32)
+            gap = max(gap, float(np.abs(sa - sb).max())
+                      / max(float(np.abs(sa).max()), 1e-6))
+            ndiff += int((ia != ib).sum())
+            require(same_topk(ia, sa, ib, sb, SERVED_RTOL),
+                    "(e) the --mesh_dp 1 server's answer differs")
+        ap = make_parser()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            try:
+                prepare_retriever(ap.parse_args(argv + ["--mesh_dp", "2"]),
+                                  ap)
+                refused = False
+            except SystemExit:
+                refused = True
+        msg = err.getvalue().strip().splitlines()[-1] if err.getvalue() \
+            else ""
+        log(f"phase 13 (e) cli.serve --mesh_dp 1: {len(reqs)} requests "
+            f"against the unsharded server: largest relative score gap "
+            f"{gap}, {ndiff} ids differ (rtol {SERVED_RTOL}); launches "
+            f"{le}; --mesh_dp 2 on {torch.cuda.device_count()} card(s): "
+            f"{msg!r}; took {time.perf_counter() - t0:.1f} s")
+        require(refused and "needs 2 devices but only" in msg,
+                f"(e) --mesh_dp 2 was not refused: {msg!r}")
+        require(le["pack"] >= 1 and le["scores"] >= len(reqs),
+                f"(e) skipped kernels: {le}")
+
+        # -- (f) distributed training: one NCCL rank on the card --------------
+        t0 = time.perf_counter()
+        conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "conf", "train_ir_cfg.yaml")
+        data = f"{work}/train.jsonl"
+        make_train_samples(np.random.default_rng(args.seed + 12), texts,
+                           words, args.train_samples, data)
+        cut = [f"train.train_sampling_rates="
+               f"[{DIST_STEPS / (args.train_samples // TRAIN_B)}]"]
+        single = []
+        with recorded_steps(torch, dev, single):
+            train_cli(conf, ckpt, f"{work}/f1", data, dev, cut)
+        child = subprocess.run(
+            [sys.executable, "-c", DIST_CHILD, conf, ckpt, f"{work}/f2",
+             data, json.dumps(cut), dev.type],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port())),
+            capture_output=True, text=True, timeout=600)
+        line = [x for x in child.stdout.splitlines()
+                if x.startswith("PHASE13F ")]
+        require(child.returncode == 0 and line,
+                f"(f) the torchrun-style child failed: {child.stderr[-3000:]}")
+        info = json.loads(line[-1][len("PHASE13F "):])
+        dist_steps = info["steps"]
+        l1 = np.array([x for _, x, _ in single])
+        l2 = np.array([x for _, x, _ in dist_steps])
+        gaps = (np.abs(l2 - l1) / np.abs(l1)).tolist()
+        log(f"phase 13 (f) cli.train as rank 0 of a {info['world']}-rank "
+            f"{info['backend']} group (WORLD_SIZE=1, LOCAL_RANK=0): "
+            f"losses {l2.round(6).tolist()} against one process's "
+            f"{l1.round(6).tolist()}, relative gaps {gaps} (step 1 held to "
+            f"1e-6, later steps to {DIST_RTOL}); step ms "
+            f"{[round(m, 1) for m, _, _ in dist_steps]} against one "
+            f"process's {[round(m, 1) for m, _, _ in single]}; the child "
+            f"took {info['wall']:.1f} s; took "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(info["backend"] == ("nccl" if dev.type == "cuda" else "gloo")
+                and info["world"] == 1,
+                f"(f) the child's group: {info}")
+        require(len(l1) == len(l2) == DIST_STEPS and gaps[0] <= 1e-6
+                and max(gaps) <= DIST_RTOL, f"(f) losses differ: {gaps}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s; launches of "
+        f"its sharded paths {counts}")
+    return counts
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# phase 13 (f): cli.train in a process of its own, under torchrun's
+# environment (set by the parent): its steps recorded as phase 12 records
+# them, with the process group's backend and size
+DIST_CHILD = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+
+conf, ckpt, out, data, cut, device = sys.argv[1:7]
+dev = torch.device(device)
+steps, info = [], {}
+def before(i):
+    info.setdefault("backend", dist.get_backend())
+    info.setdefault("world", dist.get_world_size())
+t0 = time.perf_counter()
+with cs.recorded_steps(torch, dev, steps, before):
+    cs.train_cli(conf, ckpt, out, data, device, json.loads(cut))
+info.update(steps=steps, wall=time.perf_counter() - t0)
+print("PHASE13F " + json.dumps(info), flush=True)
+"""
 
 
 if __name__ == "__main__":

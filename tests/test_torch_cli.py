@@ -292,12 +292,94 @@ def test_serve_rerank_budget_message_names_oversize_tier(
 
 
 def test_serve_mesh_not_ported(workdir, capsys):
+    """--mesh_dp above the machine's card count (none here) exits with the
+    mesh arithmetic."""
     from vsearch_tpu_torch.cli.serve import prepare_retriever
 
     ap, args = serve_args(workdir, "--mesh_dp", "2")
     with pytest.raises(SystemExit):
         prepare_retriever(args, ap)
-    assert "ROADMAP slice 7" in capsys.readouterr().err
+    assert ("mesh dp=2 x tp=1 needs 2 devices but only 0 are available"
+            in capsys.readouterr().err)
+
+
+@pytest.fixture
+def two_host_cards(monkeypatch):
+    """``make_mesh``'s default devices are two host devices (the CPU
+    stands in for a machine with two cards)."""
+    import torch
+
+    from vsearch_tpu_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setattr(mesh_mod, "_default_devices", lambda: (
+        [torch.device("cpu")] * 2, None, 0))
+
+
+def test_serve_mesh_dp_shards_index_and_rerank(workdir, two_host_cards):
+    """--mesh_dp 2 shards the index and the rerank's embeds over the
+    machine's first two cards; the answers equal the unsharded ones."""
+    from vsearch_tpu_torch.cli.serve import prepare_retriever
+
+    idx = build_bot(workdir, "bot_mesh.bot.npz")
+    argv = ["--index_file", idx, "--data_file",
+            str(workdir / "corpus.jsonl"), "--index_type", "bag_of_token"]
+    ap, args = serve_args(workdir, *argv, "--mesh_dp", "2", "--warmup")
+    sharded = prepare_retriever(args, ap)
+    assert sharded.index._mesh is not None
+    assert sharded.encoder_p._mesh is not None
+    ap, args = serve_args(workdir, *argv)
+    single = prepare_retriever(args, ap)
+    for rerank in (False, True):
+        a = single.retrieve(QUERIES, k=3, rerank=rerank, batch_size=4)
+        b = sharded.retrieve(QUERIES, k=3, rerank=rerank, batch_size=4)
+        np.testing.assert_array_equal(b.ids, a.ids)
+        np.testing.assert_allclose(b.scores, a.scores, rtol=1e-6)
+
+
+def test_serve_rerank_budget_refused_with_mesh_dp(workdir, two_host_cards,
+                                                  capsys):
+    from vsearch_tpu_torch.cli.serve import prepare_retriever
+
+    idx = build_embedded(workdir, "sparse", "sparse_mesh_budget.npz")
+    ap, args = serve_args(workdir, "--index_file", idx, "--index_type",
+                          "sparse", "--search_mode", "bitproxy",
+                          "--rerank_budget", "65536", "--mesh_dp", "2")
+    with pytest.raises(SystemExit):
+        prepare_retriever(args, ap)
+    assert "no effect with --mesh_dp" in capsys.readouterr().err
+
+
+def test_serve_main_exits_cleanly_on_sigterm():
+    """SIGTERM ends ``cli.serve.main`` as Ctrl-C does: serve_forever
+    returns, ``server_close()`` ends the dispatcher thread, exit code 0."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import os, signal, threading\n"
+        "from vsearch_tpu_torch import serve as srv\n"
+        "from vsearch_tpu_torch.cli import serve as cli\n"
+        "made = []\n"
+        "orig = srv.serve\n"
+        "def serve(retriever, **kw):\n"
+        "    s = orig(None, host='127.0.0.1', port=0)\n"
+        "    made.append(s)\n"
+        "    threading.Timer(0.5, os.kill,\n"
+        "                    (os.getpid(), signal.SIGTERM)).start()\n"
+        "    return s\n"
+        "srv.serve = serve\n"
+        "cli.prepare_retriever = lambda args, ap: None\n"
+        "cli.main(['--checkpoint', 'unused'])\n"
+        "t = made[0].service._coalescer._thread\n"
+        "t.join(5)\n"
+        "print('dispatcher alive:', t.is_alive())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=60,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("dispatcher alive: False")
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])

@@ -1,10 +1,12 @@
-"""Card-only checks of the paths slices 5 and 6 added: chunked dense
-search with the bf16 GEMM's f32 output against the CPU's upcast route and
+"""Card-only checks of the paths slices 5-7 added: chunked dense search
+with the bf16 GEMM's f32 output against the CPU's upcast route and
 float64, the DPR and cross-modal encoders on the card against the same
-weights on the CPU, and train steps on the card against the CPU's. They
-need an NVIDIA GPU and skip elsewhere; they import no JAX, so they run
-on the card with ``--noconftest``. ``python3 chip_smoke.py`` phases 11
-and 12 run the same paths at full size."""
+weights on the CPU, train steps on the card against the CPU's, and the
+sharded resident and block-tier bag-of-token searches over two virtual
+shards of the card against the unsharded ones. They need an NVIDIA GPU
+and skip elsewhere; they import no JAX, so they run on the card with
+``--noconftest``. ``python3 chip_smoke.py`` phases 11-13 run the same
+paths at full size."""
 import numpy as np
 import pytest
 import torch
@@ -153,3 +155,80 @@ def test_train_steps_on_the_card_equal_the_cpu(dev, tok):
                                rtol=3e-2)
     remat, _ = _train_step_run(dev, tok, "bfloat16", remat=True)
     np.testing.assert_allclose(np.array(remat), np.array(bf16), rtol=1e-5)
+
+
+def _bot_rows(n, v, seed):
+    """Binary rows of up to 64 distinct ascending ids (sentinel-padded to
+    64) and dyadic queries: every kernel sum is exact, so shards must give
+    the unsharded scores bit for bit."""
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.integers(0, v, size=(n, 64)), axis=1)
+    ids[:, 1:][ids[:, 1:] == ids[:, :-1]] = v  # repeats -> sentinel
+    cols = np.sort(ids, axis=1).astype(np.int32)
+    nnz = (cols < v).sum(axis=1).astype(np.int32)
+    q = (rng.integers(0, 33, size=(8, v)) / 16.0).astype(np.float32)
+    return cols, nnz, q
+
+
+@pytest.mark.parametrize("selection", ["bucketed", "exact"])
+def test_sharded_resident_search_equals_unsharded(dev, selection):
+    """Kernels #1 and #3 (or #2) on each of two shards of one card, merged,
+    against the same index unsharded."""
+    from vsearch_tpu_torch.index import BoTIndex
+    from vsearch_tpu_torch.ops import bitpack as bp
+    from vsearch_tpu_torch.ops.ell import ELLMatrix
+    from vsearch_tpu_torch.parallel.mesh import make_mesh
+
+    cols, nnz, q = _bot_rows(300_000, 3000, 4)
+    idx = BoTIndex(search_mode="bitpack", selection=selection, device=dev)
+    idx.set_ell(ELLMatrix.from_arrays(cols, nnz, None, 3000, True, dev))
+    want = idx.search(q, k=100)
+    idx.to_mesh(make_mesh(devices=[dev] * 2))
+    bp.reset_launch_counts()
+    got = idx.search(q, k=100)
+    kernel = "bucketed" if selection == "bucketed" else "scores"
+    assert bp.LAUNCHES[kernel] == 2
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
+
+
+@pytest.mark.parametrize("selection", ["exact", "bucketed"])
+def test_sharded_block_tier_equals_unsharded(dev, selection):
+    """The block tier on two shards of one card against the unsharded
+    block tier. 'exact' (kernels #1 and #2 a block) gives the same ids and
+    scores bit for bit. 'bucketed' selects by int8 scores (#1 and #4 a
+    block), carrying 2k candidates a shard, then reranks them exactly:
+    every score is its row's exact sum, and the shards' recall against
+    exact search is at least the unsharded one's less 0.01 (each shard
+    carries as many candidates as the whole unsharded sweep)."""
+    from vsearch_tpu_torch.index import BoTIndex
+    from vsearch_tpu_torch.ops import bitpack as bp
+    from vsearch_tpu_torch.ops.ell import ELLMatrix
+    from vsearch_tpu_torch.parallel.mesh import make_mesh
+
+    cols, nnz, q = _bot_rows(300_000, 3000, 5)
+    if selection == "bucketed":  # real-valued weights, as embeddings give
+        q = np.abs(np.random.default_rng(9).normal(size=q.shape)) \
+            .astype(np.float32)
+    idx = BoTIndex(search_mode="block", selection=selection, device=dev)
+    idx.stream_block_rows = 1 << 16
+    idx.set_ell(ELLMatrix.from_arrays(cols, nnz, None, 3000, True, "cpu"))
+    want = idx.search(q, k=100)
+    idx.to_mesh(make_mesh(devices=[dev] * 2))
+    bp.reset_launch_counts()
+    got = idx.search(q, k=100)
+    kernel = "scores" if selection == "exact" else "int8_bucketed"
+    assert bp.LAUNCHES[kernel] == 2 * 3 and bp.LAUNCHES["pack"] == 2 * 3
+    if selection == "exact":
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.scores, want.scores)
+        return
+    qp = np.concatenate([q, np.zeros((q.shape[0], 1), q.dtype)], axis=1)
+    exact = qp[:, cols].astype(np.float64).sum(axis=2)  # sentinel -> 0
+    kth = np.sort(exact, axis=1)[:, -100]
+    recall = [np.mean(np.take_along_axis(exact, r.ids, 1)
+                      >= kth[:, None] - 1e-4) for r in (want, got)]
+    np.testing.assert_allclose(got.scores,
+                               np.take_along_axis(exact, got.ids, 1),
+                               rtol=1e-5)
+    assert recall[1] >= recall[0] - 0.01, recall

@@ -48,7 +48,12 @@ def test_import_with_jax_blocked():
         " 'vsearch_tpu_torch.train.checkpoint',\n"
         " 'vsearch_tpu_torch.train.info_card',\n"
         " 'vsearch_tpu_torch.train.trainer', 'vsearch_tpu_torch.cli.train',\n"
-        " 'vsearch_tpu_torch.utils.neg_utils'}\n"
+        " 'vsearch_tpu_torch.utils.neg_utils',\n"
+        " 'vsearch_tpu_torch.parallel', 'vsearch_tpu_torch.parallel.mesh',\n"
+        " 'vsearch_tpu_torch.parallel.collectives',\n"
+        " 'vsearch_tpu_torch.parallel.sharded_search',\n"
+        " 'vsearch_tpu_torch.index.index_utils',\n"
+        " 'vsearch_tpu_torch.utils.vis'}\n"
         "assert need <= names, need - names\n"
         "from vsearch_tpu_torch.retriever import Retriever\n"
         "assert Retriever.retireve_negatives is Retriever.retrieve_negatives\n"

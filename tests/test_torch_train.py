@@ -747,28 +747,85 @@ def test_cli_train_cpu_end_to_end(train_file, tmp_path):
     assert again.start_epoch == 2 and again.state.step == 6
 
 
+def test_cli_train_as_one_torchrun_rank_equals_one_process(train_file,
+                                                           tmp_path,
+                                                           monkeypatch):
+    """Under torchrun's environment with one rank (gloo on the CPU) the CLI
+    forms the group, takes shard 0 of 1, writes its checkpoints as rank 0
+    and ends the group; its weights equal a run without the group's."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vsearch_tpu_torch.cli import train as cli
+
+    conf, ckpt = _cli_conf(tmp_path, train_file)
+
+    def train(out, env):
+        for var, val in env.items():
+            monkeypatch.setenv(var, val)
+        return cli.main([
+            "--config", str(conf / "train_ir_cfg.yaml"), "--device", "cpu",
+            "data_stores=tiny", "train_datasets=[tiny_train]",
+            f"model_path={ckpt}", f"output_dir={tmp_path / out}",
+            "train.batch_size=8", "train.num_train_epochs=1",
+            "train.learning_rate=1e-3", "mesh.dp=1"])
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    one = train("one", {})
+    ranked = train("ranked", {"WORLD_SIZE": "1", "RANK": "0",
+                              "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                              "MASTER_PORT": str(port)})
+    assert not dist.is_initialized()  # the CLI ended its group
+    assert ranked.state.step == one.state.step == 3
+    assert sorted(os.listdir(tmp_path / "ranked")) == [
+        "checkpoint_0", "checkpoint_1", "train_state"]
+    a, b = one.module.state_dict(), ranked.module.state_dict()
+    for name in a:
+        torch.testing.assert_close(b[name], a[name], rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("override,env", [("mesh.dp=2", None),
                                           ("mesh.tp=2", None),
                                           (None, "2")])
 def test_cli_refuses_more_than_one_device(train_file, tmp_path, override,
                                           env, monkeypatch):
+    """What the CLI still refuses before it writes anything: a mesh.dp
+    other than the launch's world size, the tp axis (not ported), and a
+    world of 2 without a coordinator to form its group."""
     from vsearch_tpu_torch.cli import train as cli
 
     conf, ckpt = _cli_conf(tmp_path, train_file)
+    for var in ("WORLD_SIZE", "MASTER_ADDR", "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(var, raising=False)
     if env:
         monkeypatch.setenv("WORLD_SIZE", env)
     argv = ["--config", str(conf / "train_ir_cfg.yaml"), "--device", "cpu",
             "data_stores=tiny", "train_datasets=[tiny_train]",
             f"model_path={ckpt}", f"output_dir={tmp_path / 'out'}"]
-    with pytest.raises(SystemExit, match="slice 7"):
+    match = {"mesh.dp=2": r"mesh.dp=2 != WORLD_SIZE=1",
+             "mesh.tp=2": r"mesh.tp=2: .*not ported \(ROADMAP",
+             None: r"WORLD_SIZE=2 without MASTER_ADDR"}[override]
+    with pytest.raises(SystemExit, match=match):
         cli.main(argv + ([override] if override else []))
     assert not os.path.exists(tmp_path / "out")
 
 
 def test_train_step_refuses_a_mesh():
+    """A mesh with a tp axis is refused (ROADMAP), and so is a dp that is
+    not the process group's world size."""
+    from vsearch_tpu_torch.parallel.mesh import make_mesh
+
     cfg = _step_cfgs("vdr", True)[1]
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        t_step.make_train_step(None, None, cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_step.make_train_step(None, None, cfg, mesh=make_mesh(
+            dp=1, tp=2, devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="world size 1"):
+        t_step.make_train_step(None, None, cfg, mesh=make_mesh(
+            devices=["cpu"] * 2))
+    t_step.make_train_step(None, None, cfg, mesh=make_mesh(devices=["cpu"]))
 
 
 def test_embed_sees_live_weights_after_training(train_file, tmp_path):

@@ -121,8 +121,11 @@ class BiEncoder:
                                     batch_size=batch_size, max_len=max_len,
                                     activate_lexical=False, **kwargs)
 
-    def explain(self, q: str, p: str, topk: int = 768) -> Dict[str, float]:
-        """Token-level q x p attribution, largest first."""
+    def explain(self, q: str, p: str, topk: int = 768, visual: bool = False,
+                max_words: int = 100, log_scale: bool = True,
+                save_file: Optional[str] = None) -> Dict[str, float]:
+        """Token-level q x p attribution, largest first; ``visual`` draws
+        it as a word cloud (``utils.vis``), into ``save_file`` if given."""
         q_dst = self.encoder_q.dst(q, topk=topk)
         p_dst = self.encoder_p.dst(p, topk=topk)
         inter = {
@@ -130,7 +133,12 @@ class BiEncoder:
             for key in set(q_dst) | set(p_dst)
             if q_dst.get(key, 0) * p_dst.get(key, 0) != 0
         }
-        return dict(sorted(inter.items(), key=lambda kv: -kv[1]))
+        results = dict(sorted(inter.items(), key=lambda kv: -kv[1]))
+        if visual:
+            from .utils.vis import wordcloud_from_dict
+            wordcloud_from_dict(results, max_words=max_words,
+                                log_scale=log_scale, save_file=save_file)
+        return results
 
     # -- persistence -------------------------------------------------------
     def _encoders(self):

@@ -5,15 +5,21 @@ Usage:
   python -m vsearch_tpu_torch.cli.serve --checkpoint ckpt \
       --index_file index.npz --data_file corpus.jsonl --port 8080
 
+``--mesh_dp N`` shards the index (and the beta rerank's embeds) over
+the first N cards of this machine (``Retriever.to_mesh``).
+
 The JAX package's ``--compile_cache`` (XLA's persistent cache) and its
-TPU-claim registration have no counterpart here: PyTorch compiles
-nothing at serve time, and the CUDA kernels are built once into the
-package's build directory.
+TPU-claim registry have no counterpart here: PyTorch compiles nothing at
+serve time, the CUDA kernels are built once into the package's build
+directory, and a CUDA context claims nothing that outlives its process.
+One idea of the claim registry stays: SIGTERM (a process manager's stop)
+is a clean exit, so ``server_close()`` ends the dispatcher thread.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import signal
 
 from .common import add_device_arg, load_retriever, setup_logging
 
@@ -30,8 +36,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--default_k", type=int, default=10)
     ap.add_argument("--mesh_dp", type=int, default=0,
-                    help="shard over this many devices: not ported, only "
-                         "0 (one device) is accepted")
+                    help="shard the index (and beta rerank) over this "
+                         "many cards of this machine; 0 = one device")
     add_device_arg(ap)
     ap.add_argument("--search_mode", default=None,
                     choices=["auto", "exact", "bitpack", "bitproxy",
@@ -71,9 +77,6 @@ def prepare_retriever(args, ap):
     """Load checkpoint + index, apply the selection policy and warm up:
     everything main() does before binding the socket (split out so it is
     testable without a server loop)."""
-    if args.mesh_dp:
-        ap.error("--mesh_dp: more than one device is not ported "
-                 "(ROADMAP slice 7)")
     retriever = load_retriever(args.checkpoint, args.device)
     if args.index_file:
         retriever.load_index(index_file=args.index_file,
@@ -124,6 +127,13 @@ def prepare_retriever(args, ap):
         idx = retriever.index
         bitpacked = (isinstance(idx, BoTIndex) and idx._use_bitpack())
         uses_budget = not bitpacked and idx._use_bitproxy()
+        if uses_budget and args.mesh_dp:
+            # mesh-sharded sparse search scores each shard exactly and
+            # merges the shards' top-k: no candidate stage reads it
+            ap.error("--rerank_budget has no effect with --mesh_dp: "
+                     "sharded sparse search scores each shard exactly "
+                     "(per-shard scorer + top-k merge) with no "
+                     "candidate/rerank stage")
         if not uses_budget:
             # an oversize BoT in 'auto' mode still answers True from
             # _use_bitpack() but actually searches through the
@@ -145,6 +155,15 @@ def prepare_retriever(args, ap):
                      "real-valued sparse indexes searched via "
                      "bit-proxy candidates")
         retriever.index.rerank_budget = args.rerank_budget
+    if args.mesh_dp:
+        from ..parallel.mesh import make_mesh
+
+        try:  # the first N cards of this machine
+            mesh = make_mesh(dp=args.mesh_dp, tp=1)
+        except ValueError as exc:  # fewer than N: the mesh arithmetic
+            ap.error(f"--mesh_dp {args.mesh_dp}: {exc}")
+        retriever.to_mesh(mesh)
+        logger.info("serving sharded over %d devices", args.mesh_dp)
     if args.warmup and retriever.index is not None:
         import time
 
@@ -167,6 +186,10 @@ def prepare_retriever(args, ap):
     return retriever
 
 
+def _exit_on_sigterm(signum, frame):
+    raise SystemExit(128 + signum)
+
+
 def main(argv=None):
     setup_logging()
     ap = make_parser()
@@ -178,6 +201,8 @@ def main(argv=None):
     server = serve(retriever, host=args.host, port=args.port,
                    default_k=args.default_k,
                    coalesce=not args.no_coalesce)
+    # SIGTERM leaves serve_forever as Ctrl-C does, through the finally
+    signal.signal(signal.SIGTERM, _exit_on_sigterm)
     try:
         server.serve_forever()
     except (KeyboardInterrupt, SystemExit):

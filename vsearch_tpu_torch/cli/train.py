@@ -4,11 +4,16 @@ Usage:
   python -m vsearch_tpu_torch.cli.train --config conf/train_ir_cfg.yaml \\
       train_datasets=[nq_train] train.batch_size=64 biencoder=dpr \\
       [--device cpu]
+  torchrun --nproc_per_node N -m vsearch_tpu_torch.cli.train ...
 
 One process trains on one device (``--device``, default ``cuda``, or a
-``device=`` override). A mesh of more than one device (``mesh.dp > 1`` or
-``mesh.tp > 1``) and a distributed launch (``WORLD_SIZE`` > 1) are
-refused: they are the port's slice 7. ``model_path`` loads a checkpoint
+``device=`` override). Under ``torchrun`` (``MASTER_ADDR``/``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) each process joins the group
+(NCCL; gloo with ``--device cpu``), takes the card ``cuda:LOCAL_RANK``
+and its own shard of the data, ``train.batch_size`` samples a step, and
+the ranks train on their global batch (``train/step.py``). ``mesh.dp``,
+when set, must equal ``WORLD_SIZE``; ``mesh.tp > 1`` is refused (not
+ported, see ROADMAP). ``model_path`` loads a checkpoint
 (HF layout, with its ``vocab.txt``); without it the bi-encoder is made
 from ``biencoder`` with random weights from ``seed``, and its tokenizer
 from the encoders' ``model_id``.
@@ -19,6 +24,7 @@ import argparse
 import logging
 import os
 import random
+from typing import Optional
 
 import numpy as np
 
@@ -27,9 +33,8 @@ from .common import add_device_arg
 
 logger = logging.getLogger("vsearch_tpu_torch.cli.train")
 
-_SLICE_7 = ("multi-GPU training (per-rank data shards and an autograd-aware "
-            "all-gather of in-batch negatives) is the port's slice 7; this "
-            "CLI trains on one device")
+_TP = ("training on the tp axis is not ported (ROADMAP, queue 1); "
+       "data-parallel training runs one process a card under torchrun")
 
 
 def set_seed(seed: int):
@@ -54,15 +59,26 @@ def build_datasets(cfg, names):
     return datasets
 
 
-def check_single_device(cfg) -> None:
-    """Refuse a mesh of more than one device and a distributed launch."""
+def check_launch(cfg) -> int:
+    """The world size of this launch (``WORLD_SIZE``, default 1), after
+    refusing what this CLI cannot run: ``mesh.tp > 1``, a ``mesh.dp``
+    other than the world size, and ``WORLD_SIZE > 1`` without a
+    coordinator address to form the group."""
     mesh_cfg = cfg.get("mesh") or {}
-    for axis in ("dp", "tp"):
-        if (mesh_cfg.get(axis) or 1) > 1:
-            raise SystemExit(f"mesh.{axis}={mesh_cfg[axis]}: {_SLICE_7}")
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world > 1:
-        raise SystemExit(f"WORLD_SIZE={world}: {_SLICE_7}")
+    if (mesh_cfg.get("tp") or 1) > 1:
+        raise SystemExit(f"mesh.tp={mesh_cfg['tp']}: {_TP}")
+    if mesh_cfg.get("dp") and mesh_cfg["dp"] != world:
+        raise SystemExit(
+            f"mesh.dp={mesh_cfg['dp']} != WORLD_SIZE={world}: one process "
+            "trains a card; launch mesh.dp processes with torchrun "
+            "--nproc_per_node")
+    if world > 1 and not (os.environ.get("MASTER_ADDR")
+                          or os.environ.get("COORDINATOR_ADDRESS")):
+        raise SystemExit(
+            f"WORLD_SIZE={world} without MASTER_ADDR/MASTER_PORT (or "
+            "COORDINATOR_ADDRESS): launch with torchrun, which sets them")
+    return world
 
 
 def main(argv=None):
@@ -76,9 +92,27 @@ def main(argv=None):
                     help="dotted key=value overrides / group swaps")
     args = ap.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
-    check_single_device(cfg)
+    world = check_launch(cfg)
     device = cfg.get("device") or args.device  # a device= override wins
+    if device == "cuda" and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"  # a card a rank
 
+    # the process group first (reference conf_utils.py:19-49)
+    from ..parallel.collectives import initialize_distributed
+
+    distributed = initialize_distributed(device=device)
+    try:
+        return _train(cfg, device, world if distributed else None)
+    finally:
+        if distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(cfg, device, world: Optional[int]):
+    """Train on ``device``; ``world``: the size of the process group this
+    rank joined (None without one)."""
     seed = int(cfg.get("seed", 12345))
     set_seed(seed)
 
@@ -111,7 +145,13 @@ def main(argv=None):
     if not datasets:
         logger.warning("no train_datasets specified; nothing to do")
         return None
-    trainer = RetrieverTrainer(retriever, train_cfg, datasets)
+    mesh = None
+    if world is not None:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(dp=world)  # one card a rank
+        logger.info("data parallel over %d ranks: %s", world, mesh)
+    trainer = RetrieverTrainer(retriever, train_cfg, datasets, mesh=mesh)
     trainer.run_train(resume=bool(cfg.get("resume")))
     return trainer
 

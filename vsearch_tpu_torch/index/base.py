@@ -110,6 +110,7 @@ class DenseIndex:
         self.dtype = dtype
         self.low_memory = low_memory
         self._lazy: Optional[_JsonlOffsets] = None
+        self._drop_mesh()
         if index_file:
             self.init_index(index_file)
         if data_file:
@@ -143,6 +144,7 @@ class DenseIndex:
         stored on the device in ``self.dtype``. Converted in row slices,
         so no f32 copy of the whole matrix is made on the host; a tensor
         already on the device in ``self.dtype`` is kept as it is."""
+        self._drop_mesh()
         if (torch.is_tensor(mat) and _on(self.device, mat)
                 and mat.dtype == self.dtype and mat.ndim == 2):
             self.vector = mat
@@ -156,6 +158,7 @@ class DenseIndex:
         convert straight to ``self.dtype`` (f16 -> f32 is exact, so this
         equals the f32 detour); other dtypes pass through f32, as the f32
         detour did."""
+        self._drop_mesh()
         shards = list(shards)
         n = sum(int(m.shape[0]) for m in shards)
         d = int(shards[0].shape[1]) if shards else 0
@@ -199,7 +202,45 @@ class DenseIndex:
             return len(self.data)
         if self._lazy is not None:
             return len(self._lazy)
+        if self._mesh is not None:
+            return self._true_rows
         return 0 if self.vector is None else int(self.vector.shape[0])
+
+    # -- distribution ------------------------------------------------------
+    def move_to_device(self, device=None):
+        """Reference-compat shim (src/ir/retriever/index.py:54-57): the
+        index already lives on its device; ``to_mesh`` shards it."""
+        return self
+
+    def _drop_mesh(self):
+        """Forget the sharded state: a reload after ``to_mesh`` must not
+        search the old rows or clamp k to the old row count."""
+        self._mesh = None  # (Mesh, axis_name) once to_mesh is called
+        self._true_rows: Optional[int] = None
+        self._shards = None
+
+    def to_mesh(self, mesh, axis_name: str = "dp"):
+        """Shard the index rows over the mesh axis; searches then run the
+        per-shard top-k and one merge (``parallel.sharded_search``). Where
+        every shard lies on the index's device (virtual shards) each is a
+        view of ``vector``; else each is a copy on its device and
+        ``vector`` is let go."""
+        from ..parallel.sharded_search import shard_rows
+
+        n, vec = int(self.vector.shape[0]), self.vector
+        self._shards = shard_rows(mesh, vec, axis_name)
+        self._mesh, self._true_rows = (mesh, axis_name), n
+        if any(d != vec.device for d in mesh.devices(axis_name)):
+            self.vector = None
+        return self
+
+    def _rows(self) -> torch.Tensor:
+        """The index rows as one tensor (gathered from the shards on the
+        host when ``to_mesh`` let ``vector`` go)."""
+        if self.vector is not None:
+            return self.vector
+        return torch.cat([p.cpu() for p in self._shards.parts]
+                         )[: self._true_rows]
 
     # -- search ------------------------------------------------------------
     def _query_tensor(self, q_embs, dim: int) -> torch.Tensor:
@@ -216,6 +257,16 @@ class DenseIndex:
         if self.selection not in ("exact", "approx"):
             raise ValueError(f"unknown selection {self.selection!r} "
                              "(dense indexes: 'exact' or 'approx')")
+        if self._mesh is not None:
+            from ..parallel.sharded_search import make_sharded_dense_search
+
+            mesh, axis_name = self._mesh
+            q = self._query_tensor(q_embs,
+                                   self._shards.local().shape[1])
+            k = min(k, self._true_rows)
+            search = make_sharded_dense_search(mesh, k, self._true_rows,
+                                               axis_name)
+            return _results(*search(q, self._shards))
         q = self._query_tensor(q_embs, self.vector.shape[1])
         k = min(k, int(self.vector.shape[0]))
         ids, scores = dense_topk_search(q.to(self.dtype), self.vector, k)
@@ -223,7 +274,7 @@ class DenseIndex:
 
     # -- persistence -------------------------------------------------------
     def save(self, path: str):
-        mat = self.vector.to(torch.float16).cpu().numpy()
+        mat = self._rows().to(torch.float16).cpu().numpy()
         if path.endswith(".npz"):
             np.savez_compressed(path, vectors=mat)
         elif path.endswith(".pt"):
@@ -233,11 +284,15 @@ class DenseIndex:
         logger.info("Index saved to %s", path)
 
     def __str__(self):
-        shape = None if self.vector is None else tuple(self.vector.shape)
+        vec = self.vector
+        shape = None if vec is None else tuple(vec.shape)
+        if vec is None and self._mesh is not None:
+            vec = self._shards.local()
+            shape = (self._true_rows, vec.shape[1])
         return (f"Index Type        : {type(self).__name__}\n"
                 f"Vector Shape      : {shape}\n"
                 f"Vector Dtype      : "
-                f"{None if self.vector is None else self.vector.dtype}\n"
+                f"{None if vec is None else vec.dtype}\n"
                 f"Number of Texts   : {len(self)}\n")
 
 

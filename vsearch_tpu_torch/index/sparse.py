@@ -74,8 +74,14 @@ class SparseIndex(DenseIndex):
 
     def _reset_derived(self):
         """Drop everything derived from the ELL: a reload that kept the
-        packed support would answer from the old corpus."""
+        packed support or the shards would answer from the old corpus."""
         self.bitproxy = None  # the support's BitMatrix (bitproxy route)
+        self._drop_mesh()
+        # what _shards holds under a mesh: 'ell' (exact per shard), 'bits'
+        # (BoTIndex: packed shards) or 'block' (BoTIndex: compact ELL
+        # shards in _mesh_ell, scored blockwise)
+        self._mesh_kind: Optional[str] = None
+        self._mesh_ell = None
 
     def _load_device(self) -> torch.device:
         """Where a freshly loaded ELL lives: the index's device, or the
@@ -182,6 +188,29 @@ class SparseIndex(DenseIndex):
             return len(self._lazy)
         return 0 if self.ell is None else self.ell.shape[0]
 
+    # -- distribution ------------------------------------------------------
+    def to_mesh(self, mesh, axis_name: str = "dp"):
+        """Row-shard the ELL over the mesh axis; searches then score each
+        shard exactly (no binary-support proxy) and merge the shards'
+        top-k, as the JAX package does. ``ell`` stays as it is (the
+        shards are views of it where they lie on its device)."""
+        from ..parallel.sharded_search import shard_ell
+
+        self._shards = shard_ell(mesh, self.ell, axis_name)
+        self._mesh, self._true_rows = (mesh, axis_name), self.ell.shape[0]
+        self._mesh_kind = "ell"
+        return self
+
+    def _mesh_ell_search(self, q: torch.Tensor, k: int) -> SearchResults:
+        from ..ops.ell import ell_matvec_chunked
+        from ..parallel.sharded_search import make_sharded_ell_search
+
+        mesh, axis_name = self._mesh
+        search = make_sharded_ell_search(
+            mesh, k, self._shards, score_fn=ell_matvec_chunked,
+            axis_name=axis_name, num_rows=self._true_rows)
+        return _results(*search(q, self._shards))
+
     # -- search ------------------------------------------------------------
     def _use_bitproxy(self) -> bool:
         if self.search_mode == "bitproxy":
@@ -200,6 +229,8 @@ class SparseIndex(DenseIndex):
         if q.shape[0] == 0:
             return SearchResults(np.zeros((0, k), np.int64),
                                  np.zeros((0, k), np.float32))
+        if self._mesh_kind == "ell":
+            return self._mesh_ell_search(q, k)
         if not self._use_bitproxy():
             return _results(*exact_search(q, self.ell, k=k))
         if num_candidates is None:
@@ -314,10 +345,12 @@ class BoTIndex(SparseIndex):
         vp = -(-v // 4096) * 4096
         return n_pad * (vp // 8)
 
-    def _budget(self) -> int:
+    def _budget(self, device: Optional[torch.device] = None) -> int:
+        """``hbm_budget_bytes``, else 3/4 of ``device``'s memory (default:
+        the index's device)."""
         if self.hbm_budget_bytes is not None:
             return self.hbm_budget_bytes
-        return torch.cuda.mem_get_info(self.device)[1] * 3 // 4
+        return torch.cuda.mem_get_info(device or self.device)[1] * 3 // 4
 
     def _load_device(self) -> torch.device:
         # the over-size modes keep a loaded ELL on the host: the block
@@ -341,7 +374,10 @@ class BoTIndex(SparseIndex):
         'stream'. 'auto' leaves the resident path only for an ELL on the
         card, preferring the block tier (no host traffic a query) and
         streaming only when even the compact ELL would crowd out the
-        per-block transients (one packed block ~1 GiB + selection)."""
+        per-block transients (one packed block ~1 GiB + selection). None
+        under a mesh: its shards hold the rows, each on its own device."""
+        if self._mesh is not None:
+            return None
         if self.search_mode in ("stream", "block"):
             return self.search_mode
         if (self.search_mode == "auto" and self._on_card()
@@ -350,22 +386,26 @@ class BoTIndex(SparseIndex):
                     <= self._budget() - (3 << 30) else "stream")
         return None
 
+    def _compact_ell(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The compact ELL of the block tier, made where the ELL lives:
+        columns past the corpus-wide max nnz (rounded to 8) are trimmed,
+        and ids are stored in 16 bits while V <= 65535 (int16 bit patterns
+        of uint16, see ``ops.ell.widen_cols``; the sentinel survives, and
+        the pack masks anything outside [0, V))."""
+        cols, nnz = self.ell.cols, self.ell.nnz.to(torch.int32)
+        mx = -(-max(int(nnz.max()), 1) // 8) * 8
+        if mx < cols.shape[1]:
+            cols = cols[:, :mx]
+        dt = torch.int16 if self.ell.num_cols <= 65535 else torch.int32
+        return cols.to(dt).contiguous(), nnz.contiguous()
+
     def _get_block_ell(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """One-time copy of the compact ELL onto the device for the block
-        tier: columns past the corpus-wide max nnz (rounded to 8) are
-        trimmed, and ids are stored in 16 bits while V <= 65535 (int16 bit
-        patterns of uint16, see ``ops.ell.widen_cols``; the sentinel
-        survives, and the pack masks anything outside [0, V))."""
+        tier (converted where the ELL lives, then moved: a host ELL
+        crosses PCIe once, at half the bytes)."""
         if self._block_ell is None:
-            cols, nnz = self.ell.cols, self.ell.nnz.to(torch.int32)
-            mx = -(-max(int(nnz.max()), 1) // 8) * 8
-            if mx < cols.shape[1]:
-                cols = cols[:, :mx]
-            dt = torch.int16 if self.ell.num_cols <= 65535 else torch.int32
-            # converted where the ELL lives, then moved: a host ELL crosses
-            # PCIe once, at half the bytes
-            self._block_ell = (cols.to(dt).to(self.device).contiguous(),
-                               nnz.to(self.device).contiguous())
+            cols, nnz = self._compact_ell()
+            self._block_ell = (cols.to(self.device), nnz.to(self.device))
         return self._block_ell
 
     def _block_selection(self) -> str:
@@ -426,14 +466,95 @@ class BoTIndex(SparseIndex):
         self.bitmat = pack_ell(self.ell)
         return self.bitmat
 
+    # -- distribution ------------------------------------------------------
+    def _mesh_use_blockwise(self, mesh, axis_name: str) -> bool:
+        """Shard the COMPACT ELL (blockwise per-shard scoring) instead of
+        the packed bits when the packed rows of a device's shards would
+        not fit it (each device reads its own budget, shared by the
+        shards it holds). Explicit 'block'/'stream' modes shard the ELL
+        too: both declare an index larger than a device, and under a mesh
+        each shard's compact ELL is 1/shards of it, so it belongs on the
+        devices."""
+        if self.search_mode in ("block", "stream"):
+            return True
+        if self.search_mode != "auto" or not self._on_card():
+            return False
+        rows_per = -(-self.ell.shape[0] // mesh.shape[axis_name])
+        mine = [d for d, m in zip(mesh.devices(axis_name),
+                                  mesh.is_local(axis_name)) if m]
+        return any(self._packed_bytes(rows_per) * mine.count(d)
+                   > self._budget(d) for d in set(mine))
+
+    def to_mesh(self, mesh, axis_name: str = "dp"):
+        """Row-shard over the mesh axis. The packed bits shard (already
+        packed bits are split; else kernel #1 packs each shard on its
+        device), so each shard keeps the resident kernels #3 or #2; when
+        even one shard's packed rows exceed its device, the compact ELL
+        shards instead and each device scores its rows blockwise (#1 and
+        #4 a block, the mesh form of the block tier). An index the resident paths would
+        not take (small, on the host) shards its ELL for exact search."""
+        from ..parallel.sharded_search import (pack_shards, shard_bitmat,
+                                               shard_ell)
+
+        n = self.ell.shape[0]
+        if self._mesh_use_blockwise(mesh, axis_name):
+            cols, nnz = self._compact_ell()
+            self._mesh_ell = shard_ell(mesh, ELLMatrix(
+                cols=cols, nnz=nnz, vals=None, num_cols=self.ell.num_cols,
+                sentinel_padded=False), axis_name)
+            self._mesh, self._true_rows = (mesh, axis_name), n
+            self._mesh_kind = "block"
+            return self
+        if self._use_bitpack():
+            if self.bitmat is None:  # packed shard by shard
+                self._shards = pack_shards(mesh, self.ell, axis_name)
+            else:
+                self._shards = shard_bitmat(mesh, self.bitmat, axis_name)
+                if any(d != self.bitmat.words.device
+                       for d in mesh.devices(axis_name)):
+                    self.bitmat = None  # the shards are copies
+            self._mesh, self._true_rows = (mesh, axis_name), n
+            self._mesh_kind = "bits"
+            return self
+        return super().to_mesh(mesh, axis_name)
+
+    def _mesh_blockwise_search(self, q: torch.Tensor, k: int
+                               ) -> SearchResults:
+        from ..parallel.sharded_search import make_sharded_blockwise_search
+
+        mesh, axis_name = self._mesh
+        search = make_sharded_blockwise_search(
+            mesh, k, self._true_rows, self._mesh_ell, axis_name,
+            selection=self._block_selection(),
+            block_rows=self.stream_block_rows,
+            cand_budget=self.block_cand_budget)
+        return _results(*search(q, self._mesh_ell))
+
+    def _mesh_bitpack_search(self, q: torch.Tensor, k: int
+                             ) -> SearchResults:
+        from ..parallel.sharded_search import make_sharded_bitpack_search
+
+        mesh, axis_name = self._mesh
+        sel = self._resolved_selection()
+        search = make_sharded_bitpack_search(
+            mesh, k, self._shards, axis_name,
+            selection="bucketed" if sel.startswith("bucketed") else "exact")
+        return _results(*search(q, self._shards))
+
     def search(self, q_embs, k: int,
                num_candidates: Optional[int] = None) -> SearchResults:
         if getattr(q_embs, "shape", (1,))[0] == 0:
             # every path has a well-defined empty answer; the kernels
             # would launch an empty grid
-            k0 = min(k, self.ell.shape[0])
+            k0 = min(k, self._true_rows or self.ell.shape[0])
             return SearchResults(np.zeros((0, k0), np.int64),
                                  np.zeros((0, k0), np.float32))
+        if self._mesh_kind in ("block", "bits"):
+            q = self._query_tensor(q_embs, self.ell.num_cols)
+            k = min(k, self._true_rows)
+            if self._mesh_kind == "block":
+                return self._mesh_blockwise_search(q, k)
+            return self._mesh_bitpack_search(q, k)
         tier = self._oversize_tier()
         if tier is not None:
             q = self._query_tensor(q_embs, self.ell.num_cols)
@@ -441,7 +562,7 @@ class BoTIndex(SparseIndex):
             if tier == "block":
                 return _results(*self._block_search(q, k))
             return SearchResults(*self._get_streamer().search(q, k))
-        if not self._use_bitpack():
+        if self._mesh_kind == "ell" or not self._use_bitpack():
             return super().search(q_embs, k, num_candidates=num_candidates)
         from ..ops.bitpack import bitpack_bucketed_topk, bitpack_topk_search
 

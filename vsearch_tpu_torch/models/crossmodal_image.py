@@ -229,9 +229,11 @@ class VDRImageEncoder:
             outs.append(emb * build_topk_mask(emb, k=topk))
         return torch.cat(outs).cpu().numpy()
 
-    def disentangle(self, image, topk: Optional[int] = None
+    def disentangle(self, image, topk: Optional[int] = None,
+                    visual: bool = False, save_file: Optional[str] = None
                     ) -> Dict[str, float]:
-        """Top-k (token -> weight) interpretation of an embedding."""
+        """Top-k (token -> weight) interpretation of an embedding;
+        ``visual`` draws it as a word cloud (``utils.vis``)."""
         topk = topk or self.config.topk
         emb = self.embed(image)[0]
         k = min(topk, emb.shape[-1])
@@ -240,7 +242,12 @@ class VDRImageEncoder:
                      self.config.num_valid_tokens == len(VALID_TOKEN_IDS)
                      else i for i in idx]
         tokens = self.tokenizer.convert_ids_to_tokens(token_ids)
-        return dict(zip(tokens, [float(emb[i]) for i in idx]))
+        results = dict(zip(tokens, [float(emb[i]) for i in idx]))
+        if visual:
+            from ..utils.vis import wordcloud_from_dict
+            wordcloud_from_dict(results, max_words=topk,
+                                save_file=save_file)
+        return results
 
     dst = disentangle
 

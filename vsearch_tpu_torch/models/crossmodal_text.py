@@ -128,7 +128,7 @@ class VDRTextEncoder(TextEncoderBase):
     def _bow_valid(self, ids: torch.Tensor) -> torch.Tensor:
         """Bag of words over the full vocabulary, then its valid columns."""
         bow = build_bow_mask(ids, vocab_size=self.config.vocab_size)
-        return bow[:, self._valid_t]
+        return bow[:, self._valid_t.to(ids.device)]
 
     def _masked_embed(self, ids, ttype, mask, topk):
         emb = self.module(ids, ttype, mask)
@@ -162,15 +162,22 @@ class VDRTextEncoder(TextEncoderBase):
         outs = self._run_batches(texts, batch_size, max_len, fn)
         return torch.cat([o[:n] for o, n in outs]).cpu().numpy()
 
-    def disentangle(self, text: str, topk: Optional[int] = None
+    def disentangle(self, text: str, topk: Optional[int] = None,
+                    visual: bool = False, save_file: Optional[str] = None
                     ) -> Dict[str, float]:
-        """Top-k (token -> weight) interpretation of an embedding."""
+        """Top-k (token -> weight) interpretation of an embedding;
+        ``visual`` draws it as a word cloud (``utils.vis``)."""
         topk = topk or self.config.topk
         emb = self.embed(text)[0]
         k = min(topk, emb.shape[-1])
         idx = [int(i) for i in np.argsort(-emb)[:k] if emb[i] != 0]
         token_ids = [int(self._valid_ids[i]) for i in idx]
         tokens = self.tokenizer.convert_ids_to_tokens(token_ids)
-        return dict(zip(tokens, [float(emb[i]) for i in idx]))
+        results = dict(zip(tokens, [float(emb[i]) for i in idx]))
+        if visual:
+            from ..utils.vis import wordcloud_from_dict
+            wordcloud_from_dict(results, max_words=topk,
+                                save_file=save_file)
+        return results
 
     dst = disentangle

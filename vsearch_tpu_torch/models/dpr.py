@@ -72,5 +72,8 @@ class DPREncoder(TextEncoderBase):
         if isinstance(texts, str):
             texts = [texts]
         max_len = max_len or self.config.max_len
-        outs = self._run_batches(texts, batch_size, max_len, self.module)
+        # self.module is looked up at each call: under a mesh each piece
+        # runs its own device's replica
+        outs = self._run_batches(texts, batch_size, max_len,
+                                 lambda *t: self.module(*t))
         return torch.cat([o[:n] for o, n in outs]).float().cpu().numpy()

@@ -1,7 +1,8 @@
 """Host-side encoder wrapper: tokenize -> length-bucketed batches ->
 forward on the device (counterpart of
 ``vsearch_tpu/models/encoder_base.py``; PyTorch runs eagerly, so there
-is no jit cache and no mesh placement).
+is no jit cache). Under ``to_mesh`` each batch splits row-wise over the
+mesh's devices, one replica of the module on each.
 
 CUDA launches are asynchronous: the batch loop keeps every output on the
 device and copies once at the end, so the host tokenizes the next batch
@@ -16,6 +17,7 @@ weights.
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -92,6 +94,61 @@ class TextEncoderBase:
         self.config = config
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
+        self._mesh = None  # (Mesh, axis_name) once to_mesh is called
+        self._replicas: Dict[torch.device, nn.Module] = {}
+
+    def to_mesh(self, mesh, axis_name: str = "dp"):
+        """Split every embed batch row-wise over the mesh axis, each piece
+        through a replica of the module on its device; outputs come back
+        in row order on the mesh's first device. The module serves its own
+        device and a repeated device shares one replica; the others are
+        copies of the weights as they are now (used by the sharded
+        beta-search rerank: candidates are per-query disjoint)."""
+        if mesh.multiprocess:
+            raise ValueError("embed splits its batches over the devices of "
+                             "this process; the mesh spans processes")
+        home = next(self.module.parameters()).device
+        self._replicas = {}
+        for d in mesh.devices(axis_name):
+            if d not in self._replicas:
+                self._replicas[d] = (self.module if d == home else
+                                     copy.deepcopy(self.module).to(d))
+        self._mesh = (mesh, axis_name)
+        return self
+
+    @contextlib.contextmanager
+    def _on_replica(self, device: torch.device):
+        """``self.module`` and ``self.device`` are ``device``'s replica
+        and ``device`` inside the block."""
+        module, dev = self.module, self.device
+        self.module, self.device = self._replicas[device], device
+        try:
+            yield
+        finally:
+            self.module, self.device = module, dev
+
+    def _forward(self, fn: Callable, t: List[torch.Tensor]):
+        """``fn(*t)`` on the device, or split over the mesh: one piece a
+        device, the outputs (tensors or tuples of them) concatenated in
+        row order on the mesh's first device. No piece waits for another:
+        the copies to the first device are the only cross-device work."""
+        if self._mesh is None:
+            return fn(*(x.to(self.device) for x in t))
+        from ..parallel.mesh import shard_batch
+
+        mesh, axis_name = self._mesh
+        devs = mesh.devices(axis_name)
+        pieces = [shard_batch(mesh, x, axis_name) for x in t]
+        outs = []
+        for j, dev in enumerate(devs):
+            with self._on_replica(dev):
+                outs.append(fn(*(p[j] for p in pieces)))
+        home = devs[0]
+        if torch.is_tensor(outs[0]):
+            return torch.cat([o.to(home, non_blocking=True) for o in outs])
+        return tuple(torch.cat([o[i].to(home, non_blocking=True)
+                                for o in outs])
+                     for i in range(len(outs[0])))
 
     def encode(self, texts: Union[str, List[str]],
                max_len: Optional[int] = None) -> Dict[str, np.ndarray]:
@@ -133,8 +190,8 @@ class TextEncoderBase:
             chunk = texts[start: start + batch_size]
             enc = self._pad_batch(self.encode(chunk, max_len=max_len),
                                   batch_size)
-            t = [torch.from_numpy(enc[k]).to(self.device).long()
+            t = [torch.from_numpy(enc[k]).long()
                  for k in ("input_ids", "token_type_ids", "attention_mask")]
             with ctx:
-                outs.append((fn(*t), len(chunk)))
+                outs.append((self._forward(fn, t), len(chunk)))
         return outs

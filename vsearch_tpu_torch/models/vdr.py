@@ -256,14 +256,20 @@ class VDREncoder(TextEncoderBase):
         return (torch.cat([c[:n] for (c, _), n in outs]).cpu().numpy(),
                 torch.cat([v[:n] for (_, v), n in outs]).cpu().numpy())
 
-    def disentangle(self, text: str, topk: int = 768) -> Dict[str, float]:
-        """Top-k (token -> weight) interpretation of an embedding."""
+    def disentangle(self, text: str, topk: int = 768, visual: bool = False,
+                    save_file: Optional[str] = None) -> Dict[str, float]:
+        """Top-k (token -> weight) interpretation of an embedding;
+        ``visual`` draws it as a word cloud (``utils.vis``)."""
         emb = self.embed(text)[0]
         k = min(topk, emb.shape[-1])
         idx = np.argsort(-emb)[:k]
         idx = [int(i) for i in idx if emb[i] != 0]
         token_ids = [i + self.config.shift_vocab_num for i in idx]
         tokens = self.tokenizer.convert_ids_to_tokens(token_ids)
-        return dict(zip(tokens, [float(emb[i]) for i in idx]))
+        results = dict(zip(tokens, [float(emb[i]) for i in idx]))
+        if visual:
+            from ..utils.vis import wordcloud_from_dict
+            wordcloud_from_dict(results, max_words=topk, save_file=save_file)
+        return results
 
     dst = disentangle

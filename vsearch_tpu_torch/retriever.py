@@ -46,6 +46,19 @@ class Retriever(BiEncoder):
         # ends in a device->host copy, so the clock covers device work
         self.last_timings: Dict[str, float] = {}
 
+    def to_mesh(self, mesh, axis_name: str = "dp"):
+        """Serve over a device mesh: the index rows shard (per-shard top-k,
+        one merge on the mesh's first device), and the beta rerank's
+        candidate embeds split over the same devices, rescored on the
+        first one."""
+        if self.index is not None and hasattr(self.index, "to_mesh"):
+            self.index.to_mesh(mesh, axis_name)
+        for enc in {id(self.encoder_q): self.encoder_q,
+                    id(self.encoder_p): self.encoder_p}.values():
+            if hasattr(enc, "to_mesh"):
+                enc.to_mesh(mesh, axis_name)
+        return self
+
     # -- query processing --------------------------------------------------
     def process_query(self, queries, dropout: float = 0.0,
                       a: Optional[int] = None, batch_size: int = 32,

@@ -14,9 +14,20 @@ f32 and casts the inputs of each matmul to bf16.
 
 Dropout draws from the global generator, forked and seeded for each step
 from the caller's integer (the trainer derives it from
-``(seed, epoch, iteration)``), so a step is repeatable, a resumed run
+``(seed, epoch, iteration, rank)``), so a step is repeatable, a resumed run
 repeats the masks of an uninterrupted one, and ``remat`` recomputes the
 same masks (``torch.utils.checkpoint`` restores the generator's state).
+
+Data parallel (a ``torch.distributed`` group of W ranks, one card each, as
+``torchrun`` starts them): each rank embeds its own batch, and the
+embeddings and token ids of every rank are gathered
+(``parallel.collectives.differentiable_all_gather``, the reference's
+``GatherLayer``) into the global batch, positives of every rank first, so
+that every rank computes the loss of the JAX step under SPMD over the
+global batch. The gather's backward pass sums the W ranks' (equal) losses'
+gradients, W times the global gradient of this rank's rows; averaging the
+gradients over the ranks (``average_gradients``) divides W out again, so
+every rank clips and updates with the gradient of the global-batch loss.
 """
 from __future__ import annotations
 
@@ -28,6 +39,9 @@ from torch import nn
 
 from ..models.encoder_base import compute_context, compute_dtype, set_remat
 from ..ops.sparse import build_bow_mask
+from ..parallel.collectives import (average_gradients,
+                                    differentiable_all_gather,
+                                    get_world_size, group_up)
 from .loss import VDRLossConfig, compute_dpr_loss, compute_vdr_loss
 from .optim import Optimizer
 
@@ -71,18 +85,51 @@ class TrainStepConfig:
     loss: VDRLossConfig = dataclasses.field(default_factory=VDRLossConfig)
 
 
-def step_seed(seed: int, epoch: int, iteration: int) -> int:
+def step_seed(seed: int, epoch: int, iteration: int, rank: int = 0) -> int:
     """A 63-bit seed for the step's dropout, distinct for every
-    ``(seed, epoch, iteration)``."""
+    ``(seed, epoch, iteration, rank)`` (rank 0's is the one-process
+    seed)."""
     import numpy as np
 
-    words = np.random.SeedSequence([seed, epoch, iteration]) \
-        .generate_state(2, np.uint32)
+    entropy = [seed, epoch, iteration] + ([rank] if rank else [])
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return (int(words[0]) << 31 | int(words[1]) >> 1) & ((1 << 63) - 1)
 
 
 def _fork_devices(t: torch.Tensor):
     return [t.device.index or 0] if t.device.type == "cuda" else []
+
+
+def check_mesh(mesh) -> None:
+    """A training mesh is the process group: ``dp`` its world size, one
+    card a rank. The ``tp`` axis is not ported (ROADMAP): in the JAX
+    package it only constrains the embeddings' layout."""
+    if mesh is None:
+        return
+    if mesh.shape["tp"] > 1:
+        raise NotImplementedError(
+            f"mesh.tp={mesh.shape['tp']}: training on the tp axis is not "
+            "ported (ROADMAP, queue 1: the JAX package only constrains the "
+            "embeddings' layout there, and its results equal dp's)")
+    if mesh.shape["dp"] != get_world_size():
+        raise ValueError(
+            f"mesh dp={mesh.shape['dp']} != world size {get_world_size()}: "
+            "data-parallel training runs one process a card (torchrun "
+            "--nproc_per_node N, WORLD_SIZE=N)")
+
+
+def _global_rows(emb: torch.Tensor, n_local: int) -> torch.Tensor:
+    """Every rank's rows of ``emb`` (queries, or passages with the rank's
+    positives in its first ``n_local`` rows) in the layout of one batch
+    over all ranks: positives of every rank in rank order, then the other
+    rows of every rank in rank order."""
+    if not group_up():
+        return emb
+    pos = differentiable_all_gather(emb[:n_local]).flatten(0, 1)
+    if emb.shape[0] == n_local:  # queries: no other rows
+        return pos
+    rest = differentiable_all_gather(emb[n_local:]).flatten(0, 1)
+    return torch.cat([pos, rest])
 
 
 def make_train_step(apply_q: Callable, apply_p: Callable,
@@ -96,24 +143,29 @@ def make_train_step(apply_q: Callable, apply_p: Callable,
     apply_q/apply_p: fns (module, ids) -> embeddings (``make_encoder_apply``).
     With ``shared_params`` both run the state's one module (reference
     shared_encoder, biencoder.py:57-59), else its ``q`` and ``p``.
+
+    In a process group of more than one rank each rank passes its own
+    batch, and the loss, metrics and update are those of the global batch
+    (module docstring); ``mesh`` (optional) must match the group
+    (``check_mesh``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (data/tensor parallel training) is the port's "
-            "slice 7 (more than one GPU); this step runs on one device")
+    check_mesh(mesh)
 
     def loss_fn(state: TrainState, batch: TrainBatch):
         m_q = state.module if shared_params else state.module["q"]
         m_p = state.module if shared_params else state.module["p"]
-        q_emb = apply_q(m_q, batch.q_ids)
-        p_emb = apply_p(m_p, batch.p_ids)
+        n = batch.q_ids.shape[0]
+        q_emb = _global_rows(apply_q(m_q, batch.q_ids), n)
+        p_emb = _global_rows(apply_p(m_p, batch.p_ids), n)
+        q_ids = _global_rows(batch.q_ids, n)
+        p_ids = _global_rows(batch.p_ids, n)
         if cfg.encoder_type == "vdr":
             q_bin, p_bin = (build_bow_mask(ids, vocab_size=cfg.vocab_size,
                                            shift_num=cfg.shift_vocab_num,
                                            norm=cfg.norm_bow,
                                            dtype=emb.dtype)
-                            for ids, emb in ((batch.q_ids, q_emb),
-                                             (batch.p_ids, p_emb)))
+                            for ids, emb in ((q_ids, q_emb),
+                                             (p_ids, p_emb)))
             return compute_vdr_loss(q_emb, p_emb, q_bin, p_bin, cfg.loss)
         if cfg.encoder_type == "dpr":
             return compute_dpr_loss(q_emb, p_emb, cfg.loss)
@@ -130,6 +182,7 @@ def make_train_step(apply_q: Callable, apply_p: Callable,
                 loss.backward()
         finally:
             state.module.eval()
+        average_gradients(list(state.module.parameters()))
         norm = state.tx.step()
         state.step += 1
         metrics = dict(metrics)
@@ -166,4 +219,4 @@ def make_encoder_apply(module: nn.Module, deterministic: bool = False,
 
 
 __all__ = ["TrainBatch", "TrainState", "TrainStepConfig", "make_train_step",
-           "make_encoder_apply", "step_seed"]
+           "make_encoder_apply", "step_seed", "check_mesh"]

@@ -2,7 +2,11 @@
 ``vsearch_tpu/train/trainer.py``).
 
 The loop draws sample batches, tokenizes them to static shapes, uploads
-them and runs the train step (``train/step.py``) on one device. Metric
+them and runs the train step (``train/step.py``) on one device. Under a
+``torch.distributed`` group (``torchrun``, one process a card) each rank
+reads its own shard of the data, ``batch_size`` samples a step, and the
+step trains on the global batch of every rank; rank 0 alone writes the
+checkpoints, which every rank can resume from. Metric
 sums stay on the device and are read only at log points, so steps queue
 on the card without the host waiting for each. Train-state checkpoints
 (weights, optimizer, step, iterator offset) give mid-epoch resume.
@@ -27,13 +31,15 @@ from torch import nn
 
 from ..data.batching import _encode_fixed, create_biencoder_batch
 from ..data.iterators import MultiSetDataIterator, get_data_iterator
+from ..parallel.collectives import (broadcast_from_master, get_rank,
+                                    get_world_size, is_master)
 from ..retriever import Retriever
 from .checkpoint import (load_checkpoint, resolve_checkpoint_dir,
                          save_checkpoint)
 from .info_card import InfoCard
 from .loss import VDRLossConfig
 from .optim import get_optimizer, get_schedule_linear
-from .step import (TrainBatch, TrainState, TrainStepConfig,
+from .step import (TrainBatch, TrainState, TrainStepConfig, check_mesh,
                    make_encoder_apply, make_train_step, step_seed)
 
 logger = logging.getLogger(__name__)
@@ -100,10 +106,8 @@ class RetrieverTrainer:
     def __init__(self, retriever: Retriever, train_cfg: TrainConfig,
                  datasets: Sequence, mesh=None,
                  dev_datasets: Optional[Sequence] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh is the port's slice 7 (more "
-                "than one GPU); the trainer runs on one device")
+        check_mesh(mesh)
+        self.mesh = mesh
         self.retriever = retriever
         self.cfg = train_cfg
         self.datasets = list(datasets)
@@ -123,6 +127,8 @@ class RetrieverTrainer:
         self.module: nn.Module = (
             enc_q.module if self.shared
             else nn.ModuleDict({"q": enc_q.module, "p": enc_p.module}))
+        # every rank starts from rank 0's weights
+        broadcast_from_master(list(self.module.state_dict().values()))
 
         loss_cfg = VDRLossConfig(
             semi=train_cfg.semi, sym_loss=train_cfg.sym_loss,
@@ -149,12 +155,14 @@ class RetrieverTrainer:
 
     # -- setup -------------------------------------------------------------
     def _build_iterator(self, offset: int = 0) -> MultiSetDataIterator:
-        # one process on one device: shard 0 of 1 (the per-rank shards
-        # of a multi-card run come with slice 7)
+        # each rank reads only its own shard of the data (the reference's
+        # per-rank ShardedDataIterator, src/ir/data/ddp_iterators.py:78-85);
+        # cfg.batch_size is the PER-RANK batch
         return get_data_iterator(
             self.datasets, self.cfg.batch_size, is_train_set=True,
             shuffle=True, shuffle_seed=self.cfg.seed, offset=offset,
-            rank=0, num_shards=1, shard_id=0,
+            rank=get_rank(), num_shards=get_world_size(),
+            shard_id=get_rank(),
             sampling_rates=self.cfg.train_sampling_rates,
             require_positive=self.cfg.require_positive,
             require_hard_negative=self.cfg.require_hard_negative)
@@ -173,7 +181,7 @@ class RetrieverTrainer:
                            schedule=schedule)
         self.state = TrainState.create(self.module, tx)
         self._step_fn = make_train_step(
-            self._apply_q, self._apply_p, self.step_cfg,
+            self._apply_q, self._apply_p, self.step_cfg, mesh=self.mesh,
             shared_params=self.shared)
 
     def resume(self, directory: Optional[str] = None) -> bool:
@@ -292,7 +300,7 @@ class RetrieverTrainer:
                                                         iteration,
                                                         source=source)
             return (i, iteration, batch, host_batch,
-                    step_seed(cfg.seed, epoch, iteration))
+                    step_seed(cfg.seed, epoch, iteration, get_rank()))
 
         if cfg.prefetch_batches < 1 or (
                 cfg.ret_negatives and self.retriever.index is not None):
@@ -381,7 +389,7 @@ class RetrieverTrainer:
                     m["correct_semiparametric"], n,
                     m["correct_parametric"], n,
                     (time.time() - t0) / (i + 1))
-                if self.enc_type == "vdr":
+                if self.enc_type == "vdr" and is_master():
                     self._log_info_card(host_batch)
             if (i + 1) % cfg.train_rolling_loss_step == 0:
                 logger.info("Avg. loss per last %d batches: %f",
@@ -440,10 +448,16 @@ class RetrieverTrainer:
         self._sync_params_to_retriever()
         path = os.path.join(self.cfg.output_dir,
                             f"{self.cfg.save_name_prefix}_{suffix}")
-        self.retriever.save_pretrained(path)
+        # the weights are the same on every rank: one writes the HF files
+        if is_master():
+            self.retriever.save_pretrained(path)
         return path
 
     def save_train_checkpoint(self, epoch: int, offset: int = 0):
+        """The train state is the same on every rank (averaged gradients,
+        equal updates, equal iterator offsets): rank 0 writes it, and a
+        resume reads it on every rank."""
         path = os.path.join(self.cfg.output_dir, "train_state")
-        save_checkpoint(path, self.state, epoch=epoch, offset=offset)
+        if is_master():
+            save_checkpoint(path, self.state, epoch=epoch, offset=offset)
         return path
