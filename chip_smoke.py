@@ -109,7 +109,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      and ``--mesh_dp 2`` refused with the mesh arithmetic; (f)
      ``cli.train`` as rank 0 of a one-rank NCCL group (``WORLD_SIZE=1``,
      in a process of its own) against one process: step 1's loss to 1e-6,
-     later steps within ``DIST_RTOL``. No multi-card speed is measured.
+     later steps within ``DIST_RTOL``. No multi-card speed is measured;
+ 14. training on the mesh's tp axis: phase 12's svdr_nq configuration
+     (BERT-base VDR, V'=29,523, q 128 / p 256, B=32 + 1 hard negative,
+     bf16 autocast on f32 weights) through the trainer API from one
+     checkpoint and seed, ``TP_STEPS`` (4) steps at tp=1 and at tp=4
+     (``make_mesh(dp=1, tp=4, devices=[cuda:0] * 4)``: the VDR head's
+     vocabulary in 4 slices, each pooled on its virtual shard; every
+     step's q and p forwards are seen to split), losses held to
+     ``TP_RTOL`` at step 1 and ``DIST_RTOL`` after, step 1's global norm
+     and f64 sum of the clipped gradients to ``TP_NORM_RTOL`` and
+     ``TP_GRAD_SUM_RTOL``, with step ms, card peak and the widest slice's logits bytes at both
+     widths; then one step at tp=2 as rank 0 of a one-rank NCCL group, in
+     a process of its own, held to the tp=1 run's first step the same
+     way.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -177,6 +190,20 @@ DIST_STEPS = 4  # phase 13 (f): steps of cli.train as a one-rank group
 # one state drift 0.1-4% in loss after the first step (nondeterministic
 # backward reductions on the card)
 DIST_RTOL = 5e-2
+TP_SHARDS = 4  # phase 14's virtual shards of the card along tp
+TP_STEPS = 4
+# phase 14's step-1 loss at tp=4 (and 2) against tp=1: equal weights and
+# batch, but the bf16 head GEMM runs at another width and may take another
+# cuBLAS algorithm
+TP_RTOL = 1e-4
+# phase 14's step 1 at tp=4 (and 2) against tp=1, past the loss: the
+# unclipped global norm (gaps 1.2e-4 at tp=4 and 4.5e-5 at the NCCL tp=2
+# in the first chip run that read them) and the f64 sum of the clipped
+# gradients (gaps 7.8e-3 and 2.3e-2: signed terms that mostly cancel, so
+# the sum is small against them). The weights after step 1 are only
+# logged: svdr_nq's warmup makes the first lr 0, so they are the start's
+TP_NORM_RTOL = 1e-3
+TP_GRAD_SUM_RTOL = 1e-1
 
 
 def log(msg: str) -> None:
@@ -754,6 +781,11 @@ def main() -> int:
             "int8_bucketed_keys": "int8_bucketed"}[e["name"]]]
     require(all(launch_13.values()),
             f"phase 13's sharded paths skipped a kernel: {launch_13}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 14: training on the mesh's tp axis (virtual shards) ----------
+    phase_tp(torch, dev, args, retriever, tok, words, texts, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -2225,9 +2257,10 @@ def recorded_steps(torch, dev, out: list, before=None, sums=None):
                         float(metrics["loss"]), float(metrics["grad_norm"])))
             if sums is not None:
                 ps = state.tx.params
-                sums.append(tuple(float(torch.stack(
-                    [t.double().sum() for t in ts]).sum())
-                    for ts in ([p.grad for p in ps], ps)))
+                with torch.no_grad():
+                    sums.append(tuple(float(torch.stack(
+                        [t.double().sum() for t in ts]).sum())
+                        for ts in ([p.grad for p in ps], ps)))
             return state, metrics
 
         self._step_fn = timed
@@ -3026,6 +3059,176 @@ def phase_mesh(torch, bp, dev, args, retriever, tok, words, texts, queries,
     return counts
 
 
+# -- phase 14 -----------------------------------------------------------------
+def tp_train(torch, dev, conf: str, ckpt: str, data: str, rate: float,
+             out_dir: str, tp: int):
+    """svdr_nq (``conf``'s ``train`` group) from the checkpoint ``ckpt``
+    through the trainer API for the share ``rate`` of ``data``'s batches,
+    over a mesh of ``tp`` virtual shards of ``dev`` along tp (none at
+    tp=1, or a dp of 1 under a process group of one). Returns the
+    trainer."""
+    from vsearch_tpu_torch.config import load_config
+    from vsearch_tpu_torch.data import BiEncoderDataset
+    from vsearch_tpu_torch.parallel.collectives import group_up
+    from vsearch_tpu_torch.parallel.mesh import make_mesh
+    from vsearch_tpu_torch.retriever import Retriever
+    from vsearch_tpu_torch.train.trainer import RetrieverTrainer, TrainConfig
+
+    cfg = load_config(conf, [])
+    retriever = Retriever.from_pretrained(ckpt, device=dev)
+    tcfg = TrainConfig.from_dict({
+        **cfg["train"], "seed": int(cfg["seed"]), "output_dir": out_dir,
+        "num_train_epochs": 1, "train_sampling_rates": [rate],
+        "log_batch_step": 10 ** 6, "train_rolling_loss_step": 10 ** 6})
+    mesh = (make_mesh(dp=1, tp=tp, devices=[dev] * tp)
+            if tp > 1 or group_up() else None)
+    trainer = RetrieverTrainer(retriever, tcfg, [BiEncoderDataset(data)],
+                               mesh=mesh)
+    trainer.run_train()
+    return trainer
+
+
+@contextlib.contextmanager
+def recorded_splits():
+    """Records, for each forward under autograd, the device types the VDR
+    head's vocabulary was split over (None: not split)."""
+    import torch
+
+    from vsearch_tpu_torch.models import vdr
+
+    split, seen = vdr._vocab_split, []
+
+    def record(pool, h, proj, valid, devices):
+        if torch.is_grad_enabled():
+            seen.append(tuple(d.type for d in devices) if devices else None)
+        return split(pool, h, proj, valid, devices)
+
+    vdr._vocab_split = record
+    try:
+        yield seen
+    finally:
+        vdr._vocab_split = split
+
+
+def hold_first_step(label: str, got: tuple, want: tuple) -> None:
+    """Step 1's (unclipped global norm, f64 sum of the clipped gradients,
+    f64 sum of the updated weights) against tp=1's from the same weights
+    and batch: the backward pass through the vocabulary split, which the
+    losses barely see (the first update moves no weight)."""
+    gaps = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    log(f"  {label} step 1 against tp=1: grad_norm {got[0]!r} / "
+        f"{want[0]!r}, gradient sum {got[1]!r} / {want[1]!r}, weight sum "
+        f"{got[2]!r} / {want[2]!r}; relative gaps {gaps} (the first two "
+        f"held to {TP_NORM_RTOL} and {TP_GRAD_SUM_RTOL})")
+    require(gaps[0] <= TP_NORM_RTOL and gaps[1] <= TP_GRAD_SUM_RTOL,
+            f"{label}'s first step differs from tp=1: {gaps}")
+
+
+def phase_tp(torch, dev, args, retriever, tok, words, texts, smi: str
+             ) -> None:
+    """Phase 14: svdr_nq at BERT-base width, ``TP_STEPS`` steps at tp=1
+    and at tp=``TP_SHARDS`` virtual shards of the card from one checkpoint
+    and seed, then one step at tp=2 under a one-rank NCCL group."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
+                        "train_ir_cfg.yaml")
+    work = tempfile.mkdtemp(prefix="chip_smoke_14_")
+    try:
+        data = os.path.join(work, "train.jsonl")
+        make_train_samples(np.random.default_rng(args.seed + 14), texts,
+                           words, args.train_samples, data)
+        ckpt = os.path.join(work, "vdr_init")
+        retriever.save_pretrained(ckpt)  # random weights from --seed
+        rate = TP_STEPS / (args.train_samples // TRAIN_B)
+        v_out = retriever.encoder_q.config.out_dim
+        widest = -(-v_out // TP_SHARDS)
+        rows = 2 * TRAIN_B * TRAIN_LP  # a step's passages x tokens
+        log(f"phase 14 (training on the tp axis): svdr_nq, BERT-base VDR "
+            f"q+p, V'={v_out}, bf16 compute on f32 weights, B={TRAIN_B} + 1 "
+            f"hard negative, q {TRAIN_LQ} / p {TRAIN_LP}; {TP_STEPS} steps "
+            f"at tp=1 and at tp={TP_SHARDS} virtual shards of one card "
+            f"({smi}) from one checkpoint and seed; no multi-card speed is "
+            f"measured; set-up {time.perf_counter() - t_phase:.1f} s")
+        runs, firsts = {}, {}
+        for tp in (1, TP_SHARDS):
+            steps, sums = [], []
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with recorded_steps(torch, dev, steps, sums=sums), \
+                    recorded_splits() as splits:
+                trainer = tp_train(torch, dev, conf, ckpt, data, rate,
+                                   os.path.join(work, f"tp{tp}"), tp)
+            peak = peak_gib(torch, dev)
+            # the q and p forwards of every step, split over the tp line
+            want = [(dev.type,) * tp if tp > 1 else None] * (2 * TP_STEPS)
+            require(len(steps) == TP_STEPS and splits == want
+                    and next(trainer.module.parameters()).device.type
+                    == dev.type,
+                    f"tp={tp}: {len(steps)} steps, the head split over "
+                    f"{splits}")
+            slice_cols = v_out if tp == 1 else widest
+            ms = [m for m, _, _ in steps]
+            runs[tp] = np.array([x for _, x, _ in steps])
+            firsts[tp] = (steps[0][2],) + sums[0]
+            log(f"  tp={tp}: losses {runs[tp].round(6).tolist()}, step ms "
+                f"{[round(m, 1) for m in ms]} (median after the first "
+                f"{float(np.median(ms[1:])):.2f}); card peak {peak}; the "
+                f"widest slice {slice_cols} of {v_out} columns, its "
+                f"[{rows}, {slice_cols}] f32 passage logits "
+                f"{rows * slice_cols * 4 / 1e9:.3f} GB; {trainer.mesh}; "
+                f"took {time.perf_counter() - t0:.1f} s")
+            require(np.isfinite(runs[tp]).all(),
+                    f"tp={tp}: non-finite loss {runs[tp]}")
+            del trainer
+        gaps = (np.abs(runs[TP_SHARDS] - runs[1]) / np.abs(runs[1])).tolist()
+        log(f"  tp={TP_SHARDS} against tp=1: relative loss gaps {gaps} "
+            f"(step 1 held to {TP_RTOL}, later steps to {DIST_RTOL})")
+        require(gaps[0] <= TP_RTOL and max(gaps) <= DIST_RTOL,
+                f"tp={TP_SHARDS} losses differ from tp=1: {gaps}")
+        hold_first_step(f"tp={TP_SHARDS}", firsts[TP_SHARDS], firsts[1])
+
+        # -- dp x tp under a process group: one NCCL rank, tp=2 ---------------
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", TP_CHILD, conf, ckpt, f"{work}/tp2",
+             data, str(1 / (args.train_samples // TRAIN_B)), dev.type],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port())),
+            capture_output=True, text=True, timeout=600)
+        line = [x for x in child.stdout.splitlines()
+                if x.startswith("PHASE14 ")]
+        require(child.returncode == 0 and line,
+                f"the dp x tp child failed: {child.stderr[-3000:]}")
+        info = json.loads(line[-1][len("PHASE14 "):])
+        loss = info["steps"][0][1]
+        require([tuple(x) for x in info["splits"]] == [(dev.type,) * 2] * 2,
+                f"the dp x tp child's head split over {info['splits']}")
+        gap = abs(loss - runs[1][0]) / abs(runs[1][0])
+        log(f"  dp=1 x tp=2 as rank 0 of a {info['world']}-rank "
+            f"{info['backend']} group ({info['mesh']}): step 1 loss "
+            f"{loss:.6f} against tp=1's {runs[1][0]:.6f}, relative gap "
+            f"{gap:.2e} (held to {TP_RTOL}); step ms "
+            f"{info['steps'][0][0]:.1f}; the child took {info['wall']:.1f} "
+            f"s; took {time.perf_counter() - t0:.1f} s")
+        require(info["backend"] == ("nccl" if dev.type == "cuda" else "gloo")
+                and info["world"] == 1
+                and len(info["steps"]) == 1 and gap <= TP_RTOL,
+                f"the dp x tp child: {info}")
+        hold_first_step("the dp=1 x tp=2 rank",
+                        (info["steps"][0][2],) + tuple(info["sums"][0]),
+                        firsts[1])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def free_port() -> int:
     import socket
 
@@ -3054,6 +3257,37 @@ with cs.recorded_steps(torch, dev, steps, before):
     cs.train_cli(conf, ckpt, out, data, device, json.loads(cut))
 info.update(steps=steps, wall=time.perf_counter() - t0)
 print("PHASE13F " + json.dumps(info), flush=True)
+"""
+
+# phase 14: one svdr_nq step at tp=2 (virtual shards of the card) as rank 0
+# of a one-rank process group formed from torchrun's environment (set by
+# the parent), recorded as phase 12 records steps
+TP_CHILD = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+from vsearch_tpu_torch.parallel.collectives import initialize_distributed
+
+conf, ckpt, out, data, rate, device = sys.argv[1:7]
+dev = torch.device(device)
+t0 = time.perf_counter()
+assert initialize_distributed(device=device)
+try:
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    steps, sums = [], []
+    with cs.recorded_steps(torch, dev, steps, sums=sums), \
+            cs.recorded_splits() as splits:
+        trainer = cs.tp_train(torch, dev, conf, ckpt, data, float(rate), out,
+                              tp=2)
+    info = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                mesh=repr(trainer.mesh), steps=steps, sums=sums,
+                splits=splits)
+finally:
+    dist.destroy_process_group()
+info["wall"] = time.perf_counter() - t0
+print("PHASE14 " + json.dumps(info), flush=True)
 """
 
 

@@ -311,8 +311,9 @@ def two_host_cards(monkeypatch):
 
     from vsearch_tpu_torch.parallel import mesh as mesh_mod
 
-    monkeypatch.setattr(mesh_mod, "_default_devices", lambda: (
-        [torch.device("cpu")] * 2, None, 0))
+    monkeypatch.setattr(mesh_mod, "_default_devices",
+                        lambda tp=1, device=None: (
+                            [torch.device("cpu")] * 2, None, 0))
 
 
 def test_serve_mesh_dp_shards_index_and_rerank(workdir, two_host_cards):

@@ -14,6 +14,13 @@ of the largest gradient (summation order, as
 one AdamW update at rtol 1e-5, and within 2 lr where a gradient lies
 inside that atol of zero (Adam's first update is lr x sign(g)).
 
+The same two ranks then train the step again on a dp=2 x tp=2 mesh (the
+VDR head's vocabulary split over two virtual CPU shards a rank), held to
+the JAX package's step at dp=2/tp=2 on the global batch with the JAX tp
+test's tolerances and schedule (its first lr is 0): loss rtol 1e-5, global
+norm rtol 1e-4, weights rtol 5e-5 / atol 1e-6, and the gradients the JAX
+step fed its optimizer as above.
+
 The same run checks the all-gather's gradient contract (the reference's
 ``GatherLayer``: each rank's own slice), ``all_gather_objects`` and a
 ``make_sharded_bitpack_search`` whose two shards live in two processes.
@@ -38,6 +45,7 @@ from vsearch_tpu.ops import sparse as j_sparse
 from vsearch_tpu.ops.bitpack import pack_dense as j_pack_dense
 from vsearch_tpu.parallel import sharded_search as jss
 from vsearch_tpu.parallel.mesh import make_mesh as j_make_mesh
+from vsearch_tpu.parallel.mesh import shard_batch as j_shard_batch
 from vsearch_tpu.train import loss as j_loss
 from vsearch_tpu.train import optim as j_optim
 from vsearch_tpu.train import step as j_step
@@ -49,6 +57,7 @@ from vsearch_tpu_torch.parallel.mesh import make_mesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_LOCAL, LR, MAX_NORM, K = 4, 1e-3, 2.0, 10
+TP_SCHEDULE, TP_DECAY = (2, 50, 1e-3), 0.01  # test_tp_equivalence.py's
 TOK = make_tokenizer()
 ENC = {"type": "vdr", "max_len": 32, "vocab_size": TOK.vocab_size,
        "hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 2,
@@ -99,7 +108,8 @@ def run(tmp_path_factory):
              bit_q=np.abs(rng.normal(size=(3, 300))).astype(np.float32))
     (work / "config.json").write_text(json.dumps(
         {"enc": ENC, "lr": LR, "max_grad_norm": MAX_NORM,
-         "n_local": N_LOCAL, "k": K}))
+         "n_local": N_LOCAL, "k": K, "tp_schedule": TP_SCHEDULE,
+         "tp_decay": TP_DECAY}))
     port = str(_free_port())
     env = dict(os.environ, OMP_NUM_THREADS="1")
     for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT",
@@ -146,7 +156,33 @@ def run(tmp_path_factory):
     new = optax.apply_updates(params, upd)
     norm = float(optax.global_norm(grads))
     clip = min(1.0, MAX_NORM / norm)
-    ref = {"loss": float(loss), "norm": norm,
+    # the JAX step at dp=2/tp=2 on the global batch
+    tx_tp = j_optim.get_optimizer(
+        params, learning_rate=LR, max_grad_norm=MAX_NORM,
+        weight_decay=TP_DECAY,
+        schedule=j_optim.get_schedule_linear(*TP_SCHEDULE))
+    jm = j_make_mesh(dp=2, tp=2)
+    tp_step = j_step.make_train_step(apply, apply, step_cfg, mesh=jm,
+                                     shared_params=True)
+    with jm:
+        tp_state, tp_m = tp_step(
+            j_step.TrainState.create(params, tx_tp),
+            j_shard_batch(jm, j_step.TrainBatch(q_ids=jnp.asarray(q),
+                                                p_ids=jnp.asarray(p))),
+            jax.random.PRNGKey(1))
+    # Adam's first moment after one step is 0.1 of the (clipped) gradient
+    adam = [s for s in jax.tree_util.tree_leaves(
+        tp_state.opt_state,
+        is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    ref_tp = {"loss": float(tp_m["loss"]),
+              "norm": float(tp_m["grad_norm"]),
+              "grads": convert.vdr_state_dict_from_flax(
+                  jax.tree_util.tree_map(lambda g: np.asarray(g) / 0.1,
+                                         adam[0].mu), 2),
+              "params": convert.vdr_state_dict_from_flax(
+                  jax.tree_util.tree_map(np.asarray, tp_state.params), 2)}
+    ref = {"tp": ref_tp, "loss": float(loss), "norm": norm,
            "grads": convert.vdr_state_dict_from_flax(
                jax.tree_util.tree_map(lambda g: np.asarray(g) * clip,
                                       grads), 2),
@@ -181,6 +217,28 @@ def test_step_gradients_and_update_equal_jax(run):
         np.testing.assert_allclose(got[signed], want[signed], rtol=1e-5,
                                    atol=1e-7, err_msg=name)
         assert np.abs(got - want).max() <= 2 * LR * (1 + 1e-5), name
+
+
+def test_dp_tp_step_equals_jax_dp_tp(run):
+    """dp=2 x tp=2 (two gloo ranks, the vocabulary split over two virtual
+    CPU shards in each) against the JAX step at dp=2/tp=2."""
+    outs, ref, _ = run
+    want = ref["tp"]
+    scale = max(float(g.abs().max()) for g in want["grads"].values())
+    for o in outs:
+        got = o["tp"]
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        np.testing.assert_allclose(got["grad_norm"], want["norm"],
+                                   rtol=1e-4)
+        for name, g in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][name], g.numpy(),
+                                       rtol=1e-4, atol=1e-5 * scale,
+                                       err_msg=name)
+            np.testing.assert_allclose(got["params"][name],
+                                       want["params"][name].numpy(),
+                                       rtol=5e-5, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(outs[0]["tp"]["loss"], outs[0]["loss"],
+                               rtol=1e-6)
 
 
 def test_differentiable_all_gather_grad(run):
@@ -232,3 +290,30 @@ def test_cross_process_sharded_bitpack_search(run, selection):
     np.testing.assert_array_equal(ids.numpy(), np.asarray(j_ids))
     np.testing.assert_allclose(scores.numpy(), np.asarray(j_s), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("selection", ["bucketed", "exact"])
+def test_tp_axis_search_stays_in_the_rank(run, selection):
+    """Under the two-rank group a dp=2 x tp=2 mesh gives each rank a line
+    of two devices; an index sharded over tp has both shards in every
+    rank, so the search gathers nothing across ranks: each id comes once,
+    the answer equals the one-device exact top-k (exact selection) and
+    the two-process dp search over the same two shards (both)."""
+    from vsearch_tpu_torch.ops.bitpack import bitpack_scores
+    from vsearch_tpu_torch.ops.search import top_k
+
+    outs, _, inp = run
+    bm = pack_ell(ELLMatrix.from_dense(inp["bits"], binary=True,
+                                       device="cpu"))
+    q = torch.from_numpy(inp["bit_q"])
+    want_s, want_ids = top_k(bitpack_scores(q, bm), K)
+    for o in outs:
+        got_ids, got_s = o[f"search_tp_{selection}"]
+        assert got_ids.shape == (q.shape[0], K)
+        assert all(len(set(row.tolist())) == K for row in got_ids)
+        if selection == "exact":
+            np.testing.assert_array_equal(got_ids, want_ids)
+            np.testing.assert_array_equal(got_s, want_s)
+        dp_ids, dp_s = o[f"search_{selection}"]
+        np.testing.assert_array_equal(got_ids, dp_ids)
+        np.testing.assert_array_equal(got_s, dp_s)

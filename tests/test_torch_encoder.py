@@ -186,3 +186,16 @@ def test_bf16_compute_config():
     cfg = t_vdr.VDREncoderConfig.from_dict({"dtype": "bfloat16"})
     assert cfg.bert.dtype == torch.bfloat16 and cfg.bert.gelu_approximate
     assert not t_bert.BertConfig().gelu_approximate
+
+
+def test_bert_tiny_config_equals_jax():
+    """``BertConfig.tiny``, the tests' small config, has the JAX package's
+    fields."""
+    for vocab in ((), (96,)):
+        t_cfg, j_cfg = (t_bert.BertConfig.tiny(*vocab),
+                        j_bert.BertConfig.tiny(*vocab))
+        for f in dataclasses.fields(t_cfg):
+            if f.name != "dtype":
+                assert getattr(t_cfg, f.name) == getattr(j_cfg, f.name), \
+                    f.name
+        assert t_cfg.dtype == torch.float32 and j_cfg.dtype == jnp.float32

@@ -13,6 +13,7 @@ from vsearch_tpu.ops import activations as j_act
 from vsearch_tpu.ops import ell as j_ell
 from vsearch_tpu.ops import search as j_search
 from vsearch_tpu.ops import sparse as j_sparse
+import vsearch_tpu_torch.ops as t_ops
 from vsearch_tpu_torch.ops import activations as t_act
 from vsearch_tpu_torch.ops import ell as t_ell
 from vsearch_tpu_torch.ops import search as t_search
@@ -135,3 +136,53 @@ def test_top_k_breaks_ties_like_lax(rng):
     s_t, i_t = t_search.top_k(torch.from_numpy(x), 50)
     np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
     np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_ell_is_binary_and_to_dense(sparse_case, binary):
+    """``is_binary`` and ``to_dense`` equal the JAX package's, for the
+    sentinel padding and for rows padded with column 0."""
+    dense, _ = sparse_case
+    j_m = j_ell.ELLMatrix.from_dense(dense, binary=binary)
+    t_m = t_ell.ELLMatrix.from_dense(dense, binary=binary, device="cpu")
+    assert t_m.is_binary == j_m.is_binary == binary
+    zero_cols = np.where(np.asarray(j_m.cols) == dense.shape[1], 0,
+                         np.asarray(j_m.cols))
+    for t_e, j_e in ((t_m, j_m), (
+            t_ell.ELLMatrix.from_arrays(zero_cols, t_m.nnz, t_m.vals,
+                                        t_m.num_cols, False, device="cpu"),
+            j_ell.ELLMatrix(cols=jnp.asarray(zero_cols), nnz=j_m.nnz,
+                            vals=j_m.vals, num_cols=j_m.num_cols))):
+        got = t_e.to_dense()
+        assert got.shape == dense.shape and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(j_e.to_dense()))
+    np.testing.assert_array_equal(t_m.to_dense().numpy(),
+                                  (dense != 0) if binary else dense)
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_ell_row_block_scores(sparse_case, binary):
+    """On rows padded with column 0 (the JAX function's own input) the
+    scores equal the JAX package's; on sentinel-padded rows, where the
+    JAX function gathers NaN, they equal the dense product."""
+    dense, q = sparse_case
+    j_m = j_ell.ELLMatrix.from_dense(dense, binary=binary)
+    cols = np.array(j_m.cols)
+    nnz = torch.from_numpy(np.array(j_m.nnz))
+    vals = None if binary else np.array(j_m.vals)
+    zero_cols = np.where(cols == dense.shape[1], 0, cols)
+    want = np.asarray(j_ell.ell_row_block_scores(
+        jnp.asarray(q), jnp.asarray(zero_cols), j_m.nnz,
+        None if binary else j_m.vals))
+    t_vals = None if binary else torch.from_numpy(vals)
+    got = t_ops.ell_row_block_scores(torch.from_numpy(q),
+                                     torch.from_numpy(zero_cols), nnz,
+                                     t_vals)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    got_s = t_ops.ell_row_block_scores(torch.from_numpy(q),
+                                       torch.from_numpy(cols), nnz, t_vals)
+    ref = q @ ((dense != 0) if binary else dense).T.astype(np.float32)
+    np.testing.assert_allclose(got_s.numpy(), ref, **TOL)
+    assert np.isnan(np.asarray(j_ell.ell_row_block_scores(
+        jnp.asarray(q), jnp.asarray(cols), j_m.nnz,
+        None if binary else j_m.vals))).any()

@@ -4,6 +4,7 @@ package (its ``_from_torch_dir``) to the same embeddings (f32 on the CPU,
 ``atol=1e-5``); a JAX-native directory is refused with a clear error."""
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -120,3 +121,87 @@ def test_jax_native_directory_is_refused(tmp_path):
 def test_missing_checkpoint_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="config.json"):
         Retriever.from_pretrained(str(tmp_path), device="cpu")
+
+
+def _write_safetensors(path, tensors, metadata=None):
+    """A ``.safetensors`` file written byte by byte: ``tensors`` maps a
+    name to (dtype string, shape, little-endian bytes)."""
+    import struct
+
+    header, offset, blobs = {}, 0, []
+    for name, (dtype, shape, raw) in tensors.items():
+        header[name] = {"dtype": dtype, "shape": list(shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        offset += len(raw)
+        blobs.append(raw)
+    if metadata is not None:
+        header["__metadata__"] = metadata
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_safetensors_checkpoint_loads_as_in_jax(tmp_path, shared):
+    """A checkpoint whose weights are ``model.safetensors`` (written by
+    the ``safetensors`` package) loads in the port and in the JAX package
+    to the same embeddings; it wins over a ``pytorch_model.bin`` beside
+    it, as in the JAX package."""
+    st = pytest.importorskip("safetensors.numpy")
+    r = port_retriever(shared)
+    r.save_pretrained(str(tmp_path))
+    sd = torch.load(str(tmp_path / "pytorch_model.bin"), weights_only=True)
+    st.save_file({k: v.numpy() for k, v in sd.items()},
+                 str(tmp_path / "model.safetensors"))
+    port_retriever(shared, seed=9).save_pretrained(str(tmp_path / "other"))
+    os.replace(tmp_path / "other" / "pytorch_model.bin",
+               tmp_path / "pytorch_model.bin")  # other weights, ignored
+    t = Retriever.from_pretrained(str(tmp_path), device="cpu")
+    j = JRetriever.from_pretrained(str(tmp_path))
+    for a, b, c in zip(embeddings(t), embeddings(j), embeddings(r)):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_bf16_safetensors_read_without_the_package(tmp_path):
+    """A BF16 ``model.safetensors`` written byte by byte loads the weights
+    that a ``pytorch_model.bin`` of the same bf16-rounded tensors gives;
+    F16 and I64 read as written, and other dtypes are refused."""
+    from vsearch_tpu_torch.biencoder import read_safetensors
+
+    r = port_retriever(False)
+    r.save_pretrained(str(tmp_path / "bin"))
+    sd = torch.load(str(tmp_path / "bin" / "pytorch_model.bin"),
+                    weights_only=True)
+    rounded = {k: v.bfloat16() for k, v in sd.items()}
+    torch.save(rounded, str(tmp_path / "bin" / "pytorch_model.bin"))
+    shutil.copytree(tmp_path / "bin", tmp_path / "st")
+    os.remove(tmp_path / "st" / "pytorch_model.bin")
+    _write_safetensors(tmp_path / "st" / "model.safetensors", {
+        k: ("BF16", v.shape, v.view(torch.int16).numpy().tobytes())
+        for k, v in rounded.items()}, metadata={"format": "pt"})
+    a = Retriever.from_pretrained(str(tmp_path / "bin"), device="cpu")
+    b = Retriever.from_pretrained(str(tmp_path / "st"), device="cpu")
+    for ea, eb in ((a.encoder_q, b.encoder_q), (a.encoder_p, b.encoder_p)):
+        sa, sb = ea.module.state_dict(), eb.module.state_dict()
+        assert sa.keys() == sb.keys()
+        for k in sa:
+            torch.testing.assert_close(sb[k], sa[k], rtol=0, atol=0)
+    for x, y in zip(embeddings(a), embeddings(b)):
+        np.testing.assert_array_equal(x, y)
+
+    half = np.array([[1.5, -2.25], [65504.0, 0.0]], np.float16)
+    longs = np.array([3, -(1 << 40), 7], np.int64)
+    _write_safetensors(tmp_path / "mixed.safetensors", {
+        "h": ("F16", half.shape, half.astype("<f2").tobytes()),
+        "i": ("I64", longs.shape, longs.astype("<i8").tobytes()),
+        "s": ("F32", (), np.float32(0.5).tobytes())})
+    got = read_safetensors(str(tmp_path / "mixed.safetensors"))
+    assert got["h"].dtype == torch.float16 and got["i"].dtype == torch.int64
+    np.testing.assert_array_equal(got["h"].numpy(), half)
+    np.testing.assert_array_equal(got["i"].numpy(), longs)
+    assert got["s"].shape == () and float(got["s"]) == 0.5
+    _write_safetensors(tmp_path / "f64.safetensors", {
+        "d": ("F64", (1,), np.float64(1.0).tobytes())})
+    with pytest.raises(ValueError, match="dtype F64"):
+        read_safetensors(str(tmp_path / "f64.safetensors"))

@@ -10,6 +10,7 @@ lower row in both, so ids compare exactly; scores compare to f32
 summation-order tolerance."""
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -179,3 +180,43 @@ def test_sparse_index_files_both_ways(pair, tmp_path, writer):
         # f16 values on disk
         np.testing.assert_allclose(after.scores, before.scores, rtol=5e-3,
                                    atol=5e-3)
+
+
+def test_biencoder_forward_matches_jax(pair):
+    """``BiEncoder.forward``: token tensors -> each encoder module's raw
+    embeddings, equal to the JAX package's ``forward`` (f32); calling the
+    model is the same; dropout needs a seed, draws other masks for the
+    two sides and repeats them for a repeated seed."""
+    j, t = pair
+    rng = np.random.default_rng(11)
+    v = t.encoder_q.config.vocab_size
+    q = rng.integers(5, v, size=(3, 10)).astype(np.int32)
+    p = rng.integers(5, v, size=(6, 14)).astype(np.int32)
+    q[1, 7:] = 0
+    p[2, 9:] = 0
+    args = (q, np.zeros_like(q), (q != 0).astype(np.int32),
+            p, np.zeros_like(p), (p != 0).astype(np.int32))
+    with torch.no_grad():
+        q_emb, p_emb = t.forward(*args)
+        called = t(*args)
+    jq, jp = j.forward(*args)
+    assert q_emb.shape == (3, v - 5) and p_emb.shape == (6, v - 5)
+    assert q_emb.device == t.device
+    np.testing.assert_allclose(q_emb.numpy(), np.asarray(jq), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(p_emb.numpy(), np.asarray(jp), rtol=1e-5,
+                               atol=1e-6)
+    for a, b in zip(called, (q_emb, p_emb)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="requires a seed"):
+        t.forward(*args, deterministic=False)
+    same = (q, args[1], args[2]) * 2
+    with torch.no_grad():
+        d1 = t.forward(*same, deterministic=False, seed=3)
+        d2 = t.forward(*same, deterministic=False, seed=3)
+        d3 = t.forward(*same, deterministic=False, seed=4)
+    assert not t.encoder_q.module.training
+    torch.testing.assert_close(d1[0], d2[0], rtol=0, atol=0)
+    assert not torch.equal(d1[0], d1[1])  # lanes 0 and 1
+    assert not torch.equal(d1[0], d3[0])
+    assert not torch.equal(d1[0], q_emb)

@@ -788,13 +788,12 @@ def test_cli_train_as_one_torchrun_rank_equals_one_process(train_file,
 
 
 @pytest.mark.parametrize("override,env", [("mesh.dp=2", None),
-                                          ("mesh.tp=2", None),
                                           (None, "2")])
 def test_cli_refuses_more_than_one_device(train_file, tmp_path, override,
                                           env, monkeypatch):
     """What the CLI still refuses before it writes anything: a mesh.dp
-    other than the launch's world size, the tp axis (not ported), and a
-    world of 2 without a coordinator to form its group."""
+    other than the launch's world size, and a world of 2 without a
+    coordinator to form its group."""
     from vsearch_tpu_torch.cli import train as cli
 
     conf, ckpt = _cli_conf(tmp_path, train_file)
@@ -806,7 +805,6 @@ def test_cli_refuses_more_than_one_device(train_file, tmp_path, override,
             "data_stores=tiny", "train_datasets=[tiny_train]",
             f"model_path={ckpt}", f"output_dir={tmp_path / 'out'}"]
     match = {"mesh.dp=2": r"mesh.dp=2 != WORLD_SIZE=1",
-             "mesh.tp=2": r"mesh.tp=2: .*not ported \(ROADMAP",
              None: r"WORLD_SIZE=2 without MASTER_ADDR"}[override]
     with pytest.raises(SystemExit, match=match):
         cli.main(argv + ([override] if override else []))
@@ -814,18 +812,85 @@ def test_cli_refuses_more_than_one_device(train_file, tmp_path, override,
 
 
 def test_train_step_refuses_a_mesh():
-    """A mesh with a tp axis is refused (ROADMAP), and so is a dp that is
-    not the process group's world size."""
+    """A mesh whose dp is not the process group's world size is refused; a
+    tp axis (the VDR head's vocabulary split, ``test_torch_tp.py``) builds
+    a step."""
     from vsearch_tpu_torch.parallel.mesh import make_mesh
 
     cfg = _step_cfgs("vdr", True)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_step.make_train_step(None, None, cfg, mesh=make_mesh(
-            dp=1, tp=2, devices=["cpu"] * 2))
+    assert callable(t_step.make_train_step(None, None, cfg, mesh=make_mesh(
+        dp=1, tp=2, devices=["cpu"] * 2)))
     with pytest.raises(ValueError, match="world size 1"):
         t_step.make_train_step(None, None, cfg, mesh=make_mesh(
             devices=["cpu"] * 2))
     t_step.make_train_step(None, None, cfg, mesh=make_mesh(devices=["cpu"]))
+
+
+@pytest.mark.parametrize("tp", [2, 3])
+def test_cli_train_on_the_tp_axis(train_file, tmp_path, tp, monkeypatch):
+    """``mesh.tp`` with ``--device cpu`` splits the VDR head's vocabulary
+    over the CPU tp times and trains end to end; its losses and global
+    norms equal ``mesh.tp=1``'s at the JAX tp test's tolerances (loss rtol
+    1e-5, norm rtol 1e-4). A shift of 6 makes V' = 143, so both widths
+    slice unevenly (72 + 71, 48 + 48 + 47)."""
+    from vsearch_tpu_torch.cli import train as cli
+    from vsearch_tpu_torch.train import trainer as tr
+
+    conf, _ = _cli_conf(tmp_path, train_file)
+    ckpt = tmp_path / "ckpt_odd"
+    enc = tiny_enc(shift_vocab_num=6)
+    Retriever(RetrieverConfig(encoder_q=enc, encoder_p=enc),
+              tokenizer=port_tok(), device="cpu").save_pretrained(str(ckpt))
+    orig = tr.RetrieverTrainer._init_state
+    runs, widths, split_fn = {}, {}, t_vdr._vocab_split
+
+    def record(pool, h, proj, valid, devices):
+        # the step's forwards (q and p a step) go through the split
+        if torch.is_grad_enabled():
+            width = len(devices) if devices else 1
+            widths[width] = widths.get(width, 0) + 1
+        return split_fn(pool, h, proj, valid, devices)
+
+    monkeypatch.setattr(t_vdr, "_vocab_split", record)
+
+    def train(width):
+        got = runs[width] = []
+
+        def init(self, updates_per_epoch):
+            orig(self, updates_per_epoch)
+            step = self._step_fn
+
+            def recorded(state, batch, seed):
+                state, metrics = step(state, batch, seed)
+                got.append((float(metrics["loss"]),
+                            float(metrics["grad_norm"])))
+                return state, metrics
+
+            self._step_fn = recorded
+
+        monkeypatch.setattr(tr.RetrieverTrainer, "_init_state", init)
+        return cli.main([
+            "--config", str(conf / "train_ir_cfg.yaml"), "--device", "cpu",
+            "data_stores=tiny", "train_datasets=[tiny_train]",
+            f"model_path={ckpt}", f"output_dir={tmp_path / str(width)}",
+            "train.batch_size=8", "train.num_train_epochs=1",
+            "train.learning_rate=1e-3", f"mesh.tp={width}"])
+
+    split = train(tp)
+    one = train(1)
+    assert split.mesh.shape == {"dp": 1, "tp": tp} and one.mesh is None
+    assert split.mesh.devices("tp") == [torch.device("cpu")] * tp
+    assert widths == {tp: 2 * split.state.step, 1: 2 * one.state.step}
+    for m in (split.retriever.encoder_q.module,
+              split.retriever.encoder_p.module):
+        assert m.tp_devices is None  # split in the step's forwards alone
+    assert split.state.step == one.state.step == 3
+    assert sorted(os.listdir(tmp_path / str(tp))) == [
+        "checkpoint_0", "checkpoint_1", "train_state"]
+    a, b = np.array(runs[tp]), np.array(runs[1])
+    assert np.isfinite(a).all()
+    np.testing.assert_allclose(a[:, 0], b[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(a[:, 1], b[:, 1], rtol=1e-4)
 
 
 def test_embed_sees_live_weights_after_training(train_file, tmp_path):

@@ -10,9 +10,13 @@ on ``127.0.0.1:PORT`` and writes what it computed to
 - one train step on its half of the global batch (4 queries, their
   positives and their hard negatives): the loss, the global norm, the
   averaged (and clipped) gradients and the weights after one AdamW update;
+- the same step on a dp=2 x tp=2 mesh (the VDR head's vocabulary split
+  over 2 virtual CPU shards a rank), under the JAX tp test's schedule;
 - the all-gather's gradient contract (a rank's rows, a replicated weight);
 - ``all_gather_objects`` and its collective size check;
-- a cross-process ``make_sharded_bitpack_search`` (one shard a rank).
+- a cross-process ``make_sharded_bitpack_search`` (one shard a rank),
+  and the same search sharded over each rank's own tp line (both shards
+  in the rank, nothing gathered across ranks).
 """
 import json
 import os
@@ -72,6 +76,28 @@ def main(rank: int, port: str, work: str) -> None:
     out["params"] = {k: v.detach().clone()
                      for k, v in module.named_parameters()}
 
+    # -- the same step with the vocabulary split over this rank's tp line --
+    module = t_vdr.VDRModule(t_vdr.VDREncoderConfig.from_dict(cfg["enc"]))
+    module.load_state_dict(torch.load(os.path.join(work, "init.pt")))
+    mesh = make_mesh(dp=2, tp=2)  # under gloo: the CPU twice a rank
+    assert mesh.devices("tp") == [torch.device("cpu")] * 2
+    apply = t_step.make_encoder_apply(module, deterministic=True, mesh=mesh)
+    tx = t_optim.get_optimizer(
+        [module], learning_rate=cfg["lr"], weight_decay=cfg["tp_decay"],
+        max_grad_norm=cfg["max_grad_norm"],
+        schedule=t_optim.get_schedule_linear(*cfg["tp_schedule"]))
+    state = t_step.TrainState.create(module, tx)
+    step = t_step.make_train_step(apply, apply, step_cfg, mesh=mesh,
+                                  shared_params=True)
+    state, metrics = step(state, t_step.TrainBatch(
+        torch.from_numpy(q_loc).long(), torch.from_numpy(p_loc).long()), 0)
+    out["tp"] = {"loss": float(metrics["loss"]),
+                 "grad_norm": float(metrics["grad_norm"]),
+                 "grads": {k: v.grad.clone()
+                           for k, v in module.named_parameters()},
+                 "params": {k: v.detach().clone()
+                            for k, v in module.named_parameters()}}
+
     # -- the GatherLayer contract ------------------------------------------
     # rows y = x @ theta of each rank (theta the same on both), gathered
     # into one global loss sum(Y * w): x's gradient is summed over the two
@@ -105,6 +131,16 @@ def main(rank: int, port: str, work: str) -> None:
         ids, scores = tss.make_sharded_bitpack_search(
             mesh, cfg["k"], shards, selection=sel)(qb, shards)
         out[f"search_{sel}"] = (ids.clone(), scores.clone())
+
+    # -- the same search sharded over this rank's own tp line ----------------
+    mesh = make_mesh(dp=2, tp=2)  # the CPU twice a rank
+    assert mesh.is_local("tp") == [True, True]
+    assert not mesh.spans_processes("tp")
+    shards = tss.shard_bitmat(mesh, bm, axis_name="tp")
+    for sel in ("bucketed", "exact"):
+        ids, scores = tss.make_sharded_bitpack_search(
+            mesh, cfg["k"], shards, axis_name="tp", selection=sel)(qb, shards)
+        out[f"search_tp_{sel}"] = (ids.clone(), scores.clone())
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 

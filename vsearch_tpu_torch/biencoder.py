@@ -6,8 +6,10 @@ package reads too (its ``_from_torch_dir``): ``config.json`` (the
 ``BiEncoderConfig`` dict), ``vocab.txt`` (one token a line, the line
 number is the id) and ``pytorch_model.bin`` (a ``torch.save``d state dict,
 keys ``encoder_q.``/``encoder_p.`` + the HF ``BertModel`` names under
-``bert_model.`` and the head's ``ln.``). The JAX package's own
-checkpoints (flax msgpack) cannot be read without flax.
+``bert_model.`` and the head's ``ln.``). A ``model.safetensors`` with the
+same keys is read in its place when present (``read_safetensors``, the
+JAX package's order). The JAX package's own checkpoints (flax msgpack)
+cannot be read without flax.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import dataclasses
 import json
 import logging
 import os
+import struct
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -27,6 +30,38 @@ logger = logging.getLogger(__name__)
 
 _JAX_NATIVE_CONFIG = "vsearch_tpu_config.json"
 _WEIGHTS = "pytorch_model.bin"
+_SAFETENSORS = "model.safetensors"
+# safetensors dtypes read, as little-endian numpy dtypes; BF16 is read as
+# its int16 bit patterns and viewed as torch.bfloat16 (numpy has no bf16)
+_ST_DTYPES = {"F32": "<f4", "F16": "<f2", "BF16": "<i2", "I64": "<i8"}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file's tensors by name, read without the
+    ``safetensors`` package: an 8-byte little-endian header length, a JSON
+    header (per tensor ``dtype``, ``shape`` and ``data_offsets`` into the
+    byte buffer that follows, plus an optional ``__metadata__``), then the
+    raw little-endian bytes. F32, F16, BF16 and I64 are read; any other
+    dtype raises."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, spec in header.items():
+        if name == "__metadata__":
+            continue
+        if spec["dtype"] not in _ST_DTYPES:
+            raise ValueError(
+                f"{path}: tensor {name!r} has dtype {spec['dtype']}; only "
+                f"{sorted(_ST_DTYPES)} are read")
+        lo, hi = spec["data_offsets"]
+        arr = np.frombuffer(data[lo:hi], dtype=_ST_DTYPES[spec["dtype"]])
+        t = torch.from_numpy(arr.astype(arr.dtype.newbyteorder("=")))
+        if spec["dtype"] == "BF16":
+            t = t.view(torch.bfloat16)
+        out[name] = t.reshape(spec["shape"])
+    return out
 
 
 def join_corpus(corpus) -> List[str]:
@@ -102,6 +137,52 @@ class BiEncoder:
             self.encoder_p = p_cls(p_cfg_cls.from_dict(config.encoder_p),
                                    tokenizer=tokenizer, seed=seed + 1,
                                    device=self.device)
+
+    # -- training forward ----------------------------------------------------
+    def forward(self, q_ids, q_segments, q_attn_mask, p_ids, p_segments,
+                p_attn_mask, *, deterministic: bool = True,
+                seed: Optional[int] = None):
+        """Token tensors (numpy arrays or tensors) -> ``(q_emb, p_emb)``,
+        each encoder module's raw embeddings on the model's device, with
+        no top-k or bag-of-words masking (the loss sparsifies its own) and
+        autograd recording unless the caller turns it off. The forward
+        computes in the encoders' configured dtype.
+
+        ``deterministic=False`` turns dropout on and needs ``seed``: the
+        query side draws its masks from seed lane 0 and the passage side
+        from lane 1, so the two sides' masks differ and a repeated call
+        repeats them (the JAX package folds lanes 0 and 1 into its key).
+        For training use ``train.step.make_train_step``."""
+        from .models.encoder_base import compute_context, compute_dtype
+
+        if not deterministic and seed is None:
+            raise ValueError(
+                "deterministic=False requires a seed; pass a fresh one per "
+                "step (the reference draws new dropout masks each forward)")
+        outs = []
+        for lane, (enc, tensors) in enumerate((
+                (self.encoder_q, (q_ids, q_segments, q_attn_mask)),
+                (self.encoder_p, (p_ids, p_segments, p_attn_mask)))):
+            mod = enc.module
+            dev = next(mod.parameters()).device
+            args = [torch.as_tensor(x).long().to(dev) for x in tensors]
+            was_training = mod.training
+            mod.train(not deterministic)
+            try:
+                # manual_seed re-seeds every card: restore them all
+                with torch.random.fork_rng(
+                        devices=range(torch.cuda.device_count()),
+                        device_type="cuda"):
+                    if seed is not None:
+                        torch.manual_seed(int(np.random.SeedSequence(
+                            [seed, lane]).generate_state(1)[0]))
+                    with compute_context(mod, compute_dtype(enc.config)):
+                        outs.append(mod(*args))
+            finally:
+                mod.train(was_training)
+        return outs[0], outs[1]
+
+    __call__ = forward
 
     def encode_queries(self, queries: List[str],
                        batch_size: Optional[int] = None,
@@ -212,13 +293,7 @@ class BiEncoder:
             if (enc_cfg.get("type", "vdr") in ("vdr", "vdr_crossmodal_text")
                     and "compat_pad_pooling" not in enc_cfg):
                 enc_cfg["compat_pad_pooling"] = True
-        weights = os.path.join(path, _WEIGHTS)
-        if not os.path.isfile(weights):
-            raise FileNotFoundError(
-                f"no {_WEIGHTS} under {path} (safetensors checkpoints are "
-                "not read: the package depends on torch, numpy and scipy "
-                "only)")
-        sd = torch.load(weights, map_location="cpu", weights_only=True)
+        sd = _load_state_dict(path)
         model = cls(config, tokenizer=tokenizer, **kwargs)
         from .models import convert
 
@@ -239,6 +314,19 @@ class BiEncoder:
             etype = getattr(enc.config, "type", "vdr")
             enc.module.load_state_dict(readers[etype](sub, enc.config))
         return model
+
+
+def _load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint directory's weights on the host: ``model.safetensors``
+    when present, else ``pytorch_model.bin``."""
+    st = os.path.join(path, _SAFETENSORS)
+    if os.path.isfile(st):
+        return read_safetensors(st)
+    weights = os.path.join(path, _WEIGHTS)
+    if not os.path.isfile(weights):
+        raise FileNotFoundError(
+            f"no {_SAFETENSORS} or {_WEIGHTS} under {path}")
+    return torch.load(weights, map_location="cpu", weights_only=True)
 
 
 def _json_value(v):

@@ -10,10 +10,13 @@ One process trains on one device (``--device``, default ``cuda``, or a
 ``device=`` override). Under ``torchrun`` (``MASTER_ADDR``/``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) each process joins the group
 (NCCL; gloo with ``--device cpu``), takes the card ``cuda:LOCAL_RANK``
-and its own shard of the data, ``train.batch_size`` samples a step, and
-the ranks train on their global batch (``train/step.py``). ``mesh.dp``,
-when set, must equal ``WORLD_SIZE``; ``mesh.tp > 1`` is refused (not
-ported, see ROADMAP). ``model_path`` loads a checkpoint
+(at ``mesh.tp = 1``) and its own shard of the data, ``train.batch_size``
+samples a step, and the ranks train on their global batch (``train/step.py``). ``mesh.dp``,
+when set, must equal ``WORLD_SIZE``. ``mesh.tp = T`` splits the VDR head's
+vocabulary over T devices of each process (``parallel/mesh.py``): cards
+``LOCAL_RANK*T .. LOCAL_RANK*T+T-1`` under ``torchrun``, T cards from
+``--device``'s alone, the CPU T times with ``--device cpu``; too few
+cards raise with the mesh arithmetic. ``model_path`` loads a checkpoint
 (HF layout, with its ``vocab.txt``); without it the bi-encoder is made
 from ``biencoder`` with random weights from ``seed``, and its tokenizer
 from the encoders' ``model_id``.
@@ -24,17 +27,12 @@ import argparse
 import logging
 import os
 import random
-from typing import Optional
-
 import numpy as np
 
 from ..config import load_config
 from .common import add_device_arg
 
 logger = logging.getLogger("vsearch_tpu_torch.cli.train")
-
-_TP = ("training on the tp axis is not ported (ROADMAP, queue 1); "
-       "data-parallel training runs one process a card under torchrun")
 
 
 def set_seed(seed: int):
@@ -61,13 +59,11 @@ def build_datasets(cfg, names):
 
 def check_launch(cfg) -> int:
     """The world size of this launch (``WORLD_SIZE``, default 1), after
-    refusing what this CLI cannot run: ``mesh.tp > 1``, a ``mesh.dp``
-    other than the world size, and ``WORLD_SIZE > 1`` without a
-    coordinator address to form the group."""
+    refusing what this CLI cannot run: a ``mesh.dp`` other than the world
+    size, and ``WORLD_SIZE > 1`` without a coordinator address to form the
+    group."""
     mesh_cfg = cfg.get("mesh") or {}
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if (mesh_cfg.get("tp") or 1) > 1:
-        raise SystemExit(f"mesh.tp={mesh_cfg['tp']}: {_TP}")
     if mesh_cfg.get("dp") and mesh_cfg["dp"] != world:
         raise SystemExit(
             f"mesh.dp={mesh_cfg['dp']} != WORLD_SIZE={world}: one process "
@@ -93,16 +89,32 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
     world = check_launch(cfg)
+    tp = int((cfg.get("mesh") or {}).get("tp") or 1)
     device = cfg.get("device") or args.device  # a device= override wins
-    if device == "cuda" and "LOCAL_RANK" in os.environ:
-        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"  # a card a rank
 
-    # the process group first (reference conf_utils.py:19-49)
+    # the process group first (reference conf_utils.py:19-49); a bare
+    # "cuda" is cuda:LOCAL_RANK there
     from ..parallel.collectives import initialize_distributed
 
     distributed = initialize_distributed(device=device)
     try:
-        return _train(cfg, device, world if distributed else None)
+        mesh = None
+        if distributed or tp > 1:
+            import torch
+
+            from ..device import resolve_device
+            from ..parallel.mesh import make_mesh
+
+            try:  # a tp line a rank, its lead the rank's device
+                mesh = make_mesh(dp=world if distributed else 1, tp=tp,
+                                 device=resolve_device(device))
+            except ValueError as exc:
+                raise SystemExit(str(exc)) from None
+            device = mesh.devices("tp")[0]
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            logger.info("training over %s", mesh)
+        return _train(cfg, device, mesh)
     finally:
         if distributed:
             import torch.distributed as dist
@@ -110,9 +122,8 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
-def _train(cfg, device, world: Optional[int]):
-    """Train on ``device``; ``world``: the size of the process group this
-    rank joined (None without one)."""
+def _train(cfg, device, mesh=None):
+    """Train on ``device`` over ``mesh`` (None: one device, no group)."""
     seed = int(cfg.get("seed", 12345))
     set_seed(seed)
 
@@ -145,12 +156,6 @@ def _train(cfg, device, world: Optional[int]):
     if not datasets:
         logger.warning("no train_datasets specified; nothing to do")
         return None
-    mesh = None
-    if world is not None:
-        from ..parallel.mesh import make_mesh
-
-        mesh = make_mesh(dp=world)  # one card a rank
-        logger.info("data parallel over %d ranks: %s", world, mesh)
     trainer = RetrieverTrainer(retriever, train_cfg, datasets, mesh=mesh)
     trainer.run_train(resume=bool(cfg.get("resume")))
     return trainer

@@ -49,6 +49,13 @@ class BertConfig:
             return self.approx_gelu
         return self.dtype == torch.bfloat16
 
+    @classmethod
+    def tiny(cls, vocab_size: int = 512) -> "BertConfig":
+        """Small config for tests."""
+        return cls(vocab_size=vocab_size, hidden_size=64,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   intermediate_size=128, max_position_embeddings=64)
+
 
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: BertConfig):

@@ -69,6 +69,18 @@ def set_remat(module: nn.Module, on: bool) -> None:
             sub.remat = on
 
 
+def set_tp(module: nn.Module, devices) -> None:
+    """Split the vocabulary head of every submodule that offers it (a
+    ``tp_devices`` attribute: the VDR head) over ``devices``, the process's
+    tp line with the module's own device first; None or one device turns
+    the split off. An encoder without a vocabulary head is left as it is."""
+    devices = list(devices) if devices is not None and len(devices) > 1 \
+        else None
+    for sub in module.modules():
+        if hasattr(sub, "tp_devices"):
+            sub.tp_devices = devices
+
+
 def length_buckets(max_len: int, min_bucket: int = 32) -> List[int]:
     """Doubling buckets: 32, 64, ..., max_len (always includes max_len)."""
     buckets = []
@@ -104,9 +116,10 @@ class TextEncoderBase:
         device and a repeated device shares one replica; the others are
         copies of the weights as they are now (used by the sharded
         beta-search rerank: candidates are per-query disjoint)."""
-        if mesh.multiprocess:
+        if mesh.spans_processes(axis_name):
             raise ValueError("embed splits its batches over the devices of "
-                             "this process; the mesh spans processes")
+                             f"this process; the mesh's {axis_name} spans "
+                             "processes")
         home = next(self.module.parameters()).device
         self._replicas = {}
         for d in mesh.devices(axis_name):

@@ -60,7 +60,16 @@ class VDREncoderConfig:
 
 class VDRModule(nn.Module):
     """tokens -> [B, V - shift] f32 vocabulary embedding. Parameter names
-    follow the reference's torch VDR encoder (``bert_model.*`` + ``ln``)."""
+    follow the reference's torch VDR encoder (``bert_model.*`` + ``ln``).
+
+    With ``tp_devices`` (``encoder_base.set_tp``; the mesh's tp line, this
+    module's device first) the trunk runs once, here, and the head's
+    shifted vocabulary splits into one contiguous slice a device (the
+    first ``V' % T`` slices one column wider): each device pools its
+    slice from a copy of the trunk's output, and the slices come back
+    here in vocabulary order. The copies are differentiable ``.to``s, so
+    the gradients reach the one weight here (a no-op on repeated
+    devices)."""
 
     def __init__(self, config: VDREncoderConfig):
         super().__init__()
@@ -69,6 +78,7 @@ class VDRModule(nn.Module):
         self.ln = nn.LayerNorm(config.bert.hidden_size, eps=1e-5)
         # checkpoint the max-pool's vocab chunks under autograd (remat)
         self.remat = False
+        self.tp_devices = None  # the head's vocabulary split (set_tp)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         cfg = self.config
@@ -89,24 +99,47 @@ class VDRModule(nn.Module):
         else:
             valid = attention_mask.bool()
         if cfg.pooling == "max":
-            emb = elu1p(_masked_max_project(
-                h, proj, valid, self.remat and torch.is_grad_enabled()))
+            remat = self.remat and torch.is_grad_enabled()
+            emb = elu1p(_vocab_split(
+                lambda *a: _masked_max_project(*a, remat=remat), h, proj,
+                valid, self.tp_devices))
         elif cfg.pooling == "mean":
-            logits = (h @ proj.T).float()  # [B, L, V']
-            validf = valid[:, :, None].float()
-            acts = elu1p(logits) * validf
-            if cfg.pooling_topk:
-                top = torch.topk(acts.transpose(1, 2), cfg.pooling_topk,
-                                 dim=-1).values
-                emb = top.mean(dim=-1)
-            else:
-                emb = acts.sum(dim=1) / validf.sum(dim=1).clamp_min(1.0)
+            emb = _vocab_split(
+                lambda *a: _mean_project(*a, topk=cfg.pooling_topk), h,
+                proj, valid, self.tp_devices)
         else:
             raise NotImplementedError(cfg.pooling)
-        if cfg.norm:
+        if cfg.norm:  # over the whole row, after the slices are joined
             emb = emb / torch.linalg.vector_norm(
                 emb, dim=-1, keepdim=True).clamp_min(1e-12)
         return emb
+
+
+def _vocab_split(pool, h: torch.Tensor, proj: torch.Tensor,
+                 valid: torch.Tensor, devices) -> torch.Tensor:
+    """``pool(h, proj, valid)`` -> [B, V'] computed in contiguous vocab
+    slices of ``proj``, one a device of ``devices`` (None: all here), each
+    from its own copy of ``h`` and ``valid``, joined on ``h``'s device."""
+    if not devices:
+        return pool(h, proj, valid)
+    home = h.device
+    return torch.cat([pool(h.to(d), part.to(d), valid.to(d)).to(home)
+                      for d, part in zip(devices,
+                                         proj.tensor_split(len(devices)))],
+                     dim=1)
+
+
+def _mean_project(h: torch.Tensor, proj: torch.Tensor, valid: torch.Tensor,
+                  topk: int = 0) -> torch.Tensor:
+    """[B, V'] mean over valid positions of elu1p(h @ proj.T), or with
+    ``topk`` the mean of each column's ``topk`` largest activations."""
+    logits = (h @ proj.T).float()  # [B, L, V']
+    validf = valid[:, :, None].float()
+    acts = elu1p(logits) * validf
+    if topk:
+        return torch.topk(acts.transpose(1, 2), topk, dim=-1).values.mean(
+            dim=-1)
+    return acts.sum(dim=1) / validf.sum(dim=1).clamp_min(1.0)
 
 
 def _chunk_max(hx: torch.Tensor, proj: torch.Tensor, invalid: torch.Tensor

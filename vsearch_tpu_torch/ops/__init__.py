@@ -1,6 +1,7 @@
 """Vocabulary-space math and the bit-packed CUDA kernels (layer 0)."""
 from .activations import elu1p
-from .ell import ELLMatrix, ell_from_topk, ell_matvec_chunked, ell_matvec_scores
+from .ell import (ELLMatrix, ell_from_topk, ell_matvec_chunked,
+                  ell_matvec_scores, ell_row_block_scores)
 from .search import dense_topk_search, merge_shard_topk, top_k, topk_from_scores
 from .sparse import build_bow_mask, build_topk_mask, topk_sparsify
 
@@ -13,6 +14,7 @@ __all__ = [
     "ell_from_topk",
     "ell_matvec_chunked",
     "ell_matvec_scores",
+    "ell_row_block_scores",
     "dense_topk_search",
     "merge_shard_topk",
     "top_k",

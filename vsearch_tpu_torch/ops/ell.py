@@ -46,6 +46,10 @@ class ELLMatrix:
     def nnz_pad(self) -> int:
         return self.cols.shape[1]
 
+    @property
+    def is_binary(self) -> bool:
+        return self.vals is None
+
     def __len__(self) -> int:
         return self.cols.shape[0]
 
@@ -140,6 +144,21 @@ class ELLMatrix:
         return csr_matrix((flat_vals, (rows, flat_cols)),
                           shape=(n, self.num_cols))
 
+    def to_dense(self, dtype=torch.float32) -> torch.Tensor:
+        """Densify to [N, num_cols] on the ELL's device (small matrices and
+        tests only). Entries past a row's ``nnz`` weigh 0, so both
+        paddings (the sentinel column or 0) leave no trace."""
+        n, nnz_pad = self.cols.shape
+        valid = (torch.arange(nnz_pad, device=self.cols.device)[None, :]
+                 < self.nnz[:, None])
+        vals = (valid.to(dtype) if self.vals is None
+                else torch.where(valid, self.vals.to(dtype), 0))
+        # one spare column takes the sentinel's entries
+        out = torch.zeros((n, self.num_cols + 1), dtype=dtype,
+                          device=self.cols.device)
+        out.scatter_add_(1, self.cols.long(), vals)
+        return out[:, :self.num_cols]
+
     def slice_rows(self, start: int, size: int) -> "ELLMatrix":
         end = start + size
         return ELLMatrix(
@@ -172,6 +191,23 @@ def ell_from_topk(cols, vals, num_cols: int, pad_multiple: int = 128,
                       constant_values=num_cols)
         vals = np.pad(vals, ((0, 0), (0, k_pad - k)))
     return ELLMatrix.from_arrays(cols, nnz, vals, num_cols, True, device)
+
+
+def ell_row_block_scores(q: torch.Tensor, cols: torch.Tensor,
+                         nnz: torch.Tensor, vals: Optional[torch.Tensor]
+                         ) -> torch.Tensor:
+    """Scores [B, C] of dense queries q [B, V] against one block of ELL
+    rows (cols/nnz/vals [C, nnz_pad]): a masked gather and einsum, the
+    correctness reference of the fused form. Entries past a row's ``nnz``
+    weigh 0 whatever they hold; the JAX package gathers sentinel columns
+    as NaN there, so it needs rows padded with column 0."""
+    nnz_pad = cols.shape[1]
+    valid = (torch.arange(nnz_pad, device=cols.device)[None, :]
+             < nnz[:, None])
+    w = (valid.to(q.dtype) if vals is None
+         else torch.where(valid, vals.to(q.dtype), 0))
+    g = q[:, cols.long().clamp_max(q.shape[1] - 1)]  # [B, C, nnz_pad]
+    return torch.einsum("bcj,cj->bc", g, w)
 
 
 def ell_matvec_scores(q: torch.Tensor, mat: ELLMatrix) -> torch.Tensor:

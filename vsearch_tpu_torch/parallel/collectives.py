@@ -44,12 +44,14 @@ def is_master() -> bool:
     return get_rank() == 0
 
 
-def local_device() -> torch.device:
-    """This rank's device: ``cuda:LOCAL_RANK`` under NCCL, the CPU under
-    gloo (and without a group, ``cuda`` when there is one)."""
+def local_device(tp: int = 1) -> torch.device:
+    """This rank's device, the lead of its line of ``tp``: ``cuda:LOCAL_RANK
+    * tp`` under NCCL (rank r of a node holds cards ``r*tp .. r*tp+tp-1``;
+    ``mesh.make_mesh`` checks that they are there), the CPU under gloo (and
+    without a group, the same card when there is one)."""
     if group_up() and dist.get_backend() != "nccl":
         return torch.device("cpu")
-    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) * tp)
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -87,8 +89,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
             "size and rank: pass num_processes and process_id, or set "
             "WORLD_SIZE and RANK")
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    if dev.type == "cuda":  # a bare "cuda" is this rank's card
+        torch.cuda.set_device(dev if dev.index is not None
+                              else local_device())
     dist.init_process_group(
         "nccl" if dev.type == "cuda" else "gloo",
         init_method=f"tcp://{coordinator_address}",
@@ -182,7 +185,8 @@ def gather_shard_topk(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stack the (ids, scores) [B, k_local] of this process's shards on
     ``device``: [S_local, B, k_local] each, by peer copies (no copy where
-    a shard lives on ``device``). ``multiprocess``: every rank holds the
+    a shard lives on ``device``). ``multiprocess``: the searched axis spans
+    the ranks (``Mesh.spans_processes``), every rank holds the
     same number of shards of the same shape, and the ranks' stacks are
     concatenated in rank order by ``all_gather_into_tensor``, as the JAX
     package's cross-process mesh gathers them."""

@@ -189,7 +189,8 @@ def _search_shards(mesh: Mesh, shards: Shards, q: torch.Tensor,
         ids, scores = local(q.to(dev, non_blocking=True), part)
         ids = ids + s * shards.rows_per
         pairs.append((ids, _demote_padding(ids, scores, num_rows)))
-    all_ids, all_scores = gather_shard_topk(pairs, home, mesh.multiprocess)
+    all_ids, all_scores = gather_shard_topk(
+        pairs, home, mesh.spans_processes(axis))
     return merge_shard_topk(all_ids, all_scores, k)
 
 

@@ -28,22 +28,44 @@ global batch. The gather's backward pass sums the W ranks' (equal) losses'
 gradients, W times the global gradient of this rank's rows; averaging the
 gradients over the ranks (``average_gradients``) divides W out again, so
 every rank clips and updates with the gradient of the global-batch loss.
+
+Tensor parallel (the mesh's ``tp`` axis, the JAX package's "vocab/tensor"
+axis): the JAX step lays the [B, V'] embeddings out ``P("dp", "tp")``,
+which splits the VDR head's vocabulary, and with it the [B*L, V']
+projection logits (the step's largest activation, ~1.9 GB a side at 64
+passages of 256 tokens), over the tp devices. Here a process's tp line
+(``mesh.devices("tp")``, its first device the module's own, the "lead")
+does the same: the BERT trunk runs once on the lead, each tp device pools
+its contiguous slice of the vocabulary from a copy of the trunk's output
+(``models/vdr.py``, ``encoder_base.set_tp``), the slices come back to
+the lead in vocabulary order, and the norm, the loss, the backward pass
+and the update run there as at ``tp=1``. The copies are plain
+differentiable ``.to``s, so no collective runs on the tp axis, and on
+virtual shards of one device they are no-ops. Dropout lives in the trunk
+alone, so ``tp`` changes no mask. DPR has no vocabulary head: at
+``tp > 1`` it computes on the lead what ``tp=1`` computes (the JAX layout
+of its [B, 768] output moves no arithmetic). A process is one dp rank
+whatever its tp: data shards and dropout seeds follow the process rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
 
-from ..models.encoder_base import compute_context, compute_dtype, set_remat
+from ..models.encoder_base import (compute_context, compute_dtype,
+                                   set_remat, set_tp)
 from ..ops.sparse import build_bow_mask
 from ..parallel.collectives import (average_gradients,
                                     differentiable_all_gather,
                                     get_world_size, group_up)
 from .loss import VDRLossConfig, compute_dpr_loss, compute_vdr_loss
 from .optim import Optimizer
+
+logger = logging.getLogger(__name__)
 
 
 class TrainBatch(NamedTuple):
@@ -101,21 +123,16 @@ def _fork_devices(t: torch.Tensor):
 
 
 def check_mesh(mesh) -> None:
-    """A training mesh is the process group: ``dp`` its world size, one
-    card a rank. The ``tp`` axis is not ported (ROADMAP): in the JAX
-    package it only constrains the embeddings' layout."""
+    """A training mesh is the process group along ``dp`` (its world size,
+    one process a rank) and this process's devices along ``tp`` (module
+    docstring)."""
     if mesh is None:
         return
-    if mesh.shape["tp"] > 1:
-        raise NotImplementedError(
-            f"mesh.tp={mesh.shape['tp']}: training on the tp axis is not "
-            "ported (ROADMAP, queue 1: the JAX package only constrains the "
-            "embeddings' layout there, and its results equal dp's)")
     if mesh.shape["dp"] != get_world_size():
         raise ValueError(
             f"mesh dp={mesh.shape['dp']} != world size {get_world_size()}: "
-            "data-parallel training runs one process a card (torchrun "
-            "--nproc_per_node N, WORLD_SIZE=N)")
+            "data-parallel training runs one process a card, or a tp line "
+            "of cards (torchrun --nproc_per_node N, WORLD_SIZE=N)")
 
 
 def _global_rows(emb: torch.Tensor, n_local: int) -> torch.Tensor:
@@ -150,6 +167,11 @@ def make_train_step(apply_q: Callable, apply_p: Callable,
     (``check_mesh``).
     """
     check_mesh(mesh)
+    if (mesh is not None and mesh.shape["tp"] > 1
+            and cfg.encoder_type != "vdr"):
+        logger.info("mesh tp=%d: the %s encoder has no vocabulary head; it "
+                    "computes on the lead device what tp=1 computes",
+                    mesh.shape["tp"], cfg.encoder_type)
 
     def loss_fn(state: TrainState, batch: TrainBatch):
         m_q = state.module if shared_params else state.module["q"]
@@ -194,7 +216,7 @@ def make_train_step(apply_q: Callable, apply_p: Callable,
 
 
 def make_encoder_apply(module: nn.Module, deterministic: bool = False,
-                       remat: bool = False) -> Callable:
+                       remat: bool = False, mesh=None) -> Callable:
     """The ``(module, ids) -> embeddings`` function of the train step for
     an encoder ``module``. Attention mask and token types are derived from
     the ids (ids != 0, zeros — reference loss_utils.py:38-41); the forward
@@ -206,14 +228,33 @@ def make_encoder_apply(module: nn.Module, deterministic: bool = False,
     backward pass recomputes them instead of keeping every layer's
     activations and the [B*L, chunk] f32 projection logits of the
     max-pool (~1.9 GB for 64 passages of 256 tokens at V'=29,523).
+
+    ``mesh``: the VDR head's vocabulary splits over this process's tp line
+    (module docstring), whose first device must hold ``module``, in each
+    forward of ``apply``; without a mesh there is no split.
     """
     set_remat(module, remat)
+    devices = None
+    if mesh is not None and mesh.shape["tp"] > 1:
+        devices = mesh.devices("tp")
+        home = next(module.parameters()).device
+        if devices[0] != home:
+            raise ValueError(
+                f"the tp line {[str(d) for d in devices]} must start at the "
+                f"module's device {home}: the trunk runs there")
     dtype = compute_dtype(module.config)
 
     def apply(mod: nn.Module, ids: torch.Tensor) -> torch.Tensor:
         mod.train(not deterministic)
-        with compute_context(mod, dtype):
-            return mod(ids, torch.zeros_like(ids), (ids != 0).long())
+        # the split holds for this forward alone (its backward pass reads
+        # only what the forward recorded): embed and mining outside the
+        # step run unsplit
+        set_tp(mod, devices)
+        try:
+            with compute_context(mod, dtype):
+                return mod(ids, torch.zeros_like(ids), (ids != 0).long())
+        finally:
+            set_tp(mod, None)
 
     return apply
 

@@ -6,7 +6,9 @@ them and runs the train step (``train/step.py``) on one device. Under a
 ``torch.distributed`` group (``torchrun``, one process a card) each rank
 reads its own shard of the data, ``batch_size`` samples a step, and the
 step trains on the global batch of every rank; rank 0 alone writes the
-checkpoints, which every rank can resume from. Metric
+checkpoints, which every rank can resume from. A mesh with a ``tp``
+axis splits the VDR head's vocabulary over this process's tp devices
+(``train/step.py``). Metric
 sums stay on the device and are read only at log points, so steps queue
 on the card without the host waiting for each. Train-state checkpoints
 (weights, optimizer, step, iterator offset) give mid-epoch resume.
@@ -146,10 +148,10 @@ class RetrieverTrainer:
             loss=loss_cfg)
         self._apply_q = make_encoder_apply(enc_q.module,
                                            deterministic=False,
-                                           remat=train_cfg.remat)
+                                           remat=train_cfg.remat, mesh=mesh)
         self._apply_p = make_encoder_apply(enc_p.module,
                                            deterministic=False,
-                                           remat=train_cfg.remat)
+                                           remat=train_cfg.remat, mesh=mesh)
         self.state: Optional[TrainState] = None
         self._step_fn = None
 
@@ -157,7 +159,10 @@ class RetrieverTrainer:
     def _build_iterator(self, offset: int = 0) -> MultiSetDataIterator:
         # each rank reads only its own shard of the data (the reference's
         # per-rank ShardedDataIterator, src/ir/data/ddp_iterators.py:78-85);
-        # cfg.batch_size is the PER-RANK batch
+        # cfg.batch_size is the PER-RANK batch. A process is one dp rank
+        # whatever the mesh's tp (its tp devices are its own), so the shard
+        # and the step seeds follow the process rank.
+        assert self.mesh is None or self.mesh.shape["dp"] == get_world_size()
         return get_data_iterator(
             self.datasets, self.cfg.batch_size, is_train_set=True,
             shuffle=True, shuffle_seed=self.cfg.seed, offset=offset,
