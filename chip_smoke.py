@@ -10,6 +10,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      from ``nvcc -Xptxas -v``;
   3. kernels #1-#4 against their plain PyTorch versions at a ragged
      small shape, and #2's scores, spliced and folded, against #3's keys;
+     #2 and #3 in both forms (gather and plane, ``bitpack.FORMS``);
   4. the main path: SVDR beta search through ``Retriever`` at BERT-base
      widths (random weights from ``--seed``, bf16 compute), over a
      bag-of-token index of ``--rows`` synthetic Zipf passages built by the
@@ -20,7 +21,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      scorer (kernel #2) serves the first stage;
   6. kernels #1-#3 against their plain versions on the main path's own
      inputs, with times, bounds, the library yardstick and the launch
-     geometry of #2 and #3;
+     geometry of #2 and #3, and the plane forms of #2 and #3 on the same
+     inputs (rows below the crossover: timed beside the gather forms);
   7. output checks: shapes, finite sorted scores, first-stage recall
      against exact scores, rerank scores against a dense re-embed, and a
      tiny f32 retriever on the card against the same on the CPU;
@@ -42,9 +44,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      ``retrieve(k=100)`` runs on ``--batches`` batches (kernels #1 and #3;
      the first search packs the support), with recall against exact
      search; #1 and #3 held bit for bit against
-     their plain versions at this shape and timed, #3 also at 768 ids a
-     row; the fallback below k candidates (kernel #2) on 4,096 rows against
-     the same search on the CPU;
+     their plain versions at this shape and timed; #3 and #2 in both forms
+     on a 262,144-row block of 768 ids a row, and the forms' crossover
+     table (262,144 rows at 64-768 ids, and 4,096-65,536 rows at 768 ids,
+     B=32); the same alpha path at
+     VDR's density, ``--alpha-rows`` rows of exactly 768 ids, where #3
+     must run in the plane form (queries/s, stage times, launches, recall
+     at C=256 against exact search, not gated, and the plane form's
+     candidates against the gather form's on the same rows), and its
+     fallback below k (#2) on 4,096 of its rows (the gather form) and on
+     8,192 (the plane form) against the CPU; the fallback below
+     k candidates (kernel #2) on 4,096 rows of 64 ids against the same
+     search on the CPU;
  10. checkpoints, CLIs and the server at BERT-base width: the phase-4
      retriever saved and reloaded bit for bit; ``--served-rows`` passages
      through the build and search CLIs, each result file against
@@ -65,10 +76,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      batch by batch (and 4 through PNG files), ``build_index("sparse")``
      to rows of 768 ids, text -> image and image -> text retrieval, then
      the same image index through the binary-support proxy (kernels #1
-     and #3 at V=27,623 held against their plain versions, #3 timed, its
-     recall at C=256 printed); (h) ``cli.score.eval_wiki21m`` on (f)'s
-     result file and ``cli.score.eval_beir`` on a BEIR folder with the
-     phase-4 VDR and the DPR checkpoints;
+     and #3, in the plane form, at V=27,623 held against their plain
+     versions, #3 timed in both forms, its recall at C=256 printed); (h)
+     ``cli.score.eval_wiki21m`` on (f)'s result file and
+     ``cli.score.eval_beir`` on a BEIR folder with the phase-4 VDR and
+     the DPR checkpoints;
  12. training: (a) a 2-layer f32 VDR trains 3 steps on the card and on
      the CPU from equal weights and batches (dropout 0), losses and global
      norms held to 1e-4 on equal weights and 1e-3 after an update; (b)
@@ -151,6 +163,16 @@ K = 100
 SMALL_ROWS = 1 << 16  # below BoTIndex.bucketed_threshold: exact selection
 ALPHA_ROWS = 2_000_000  # the JAX package's alpha-at-scale index (bench.py)
 ALPHA_NNZ = 64
+DENSE_NNZ = 768  # a VDR passage row at BERT width: embed_sparse's topk
+# phase 9's fallbacks below k on rows of 768 ids, (rows, k) with k above
+# the rows' bucket capacity rows // 8: an index below
+# bitpack.PLANE_MIN_ROWS (#2 in the gather form) and one at it (the plane
+# form; k just past the top-1000 of passage-ranking evaluations)
+DENSE_FALLBACKS = ((4096, 600), (8192, 1100))
+# row widths of the forms' crossover table (phase 9)
+CROSSOVER_IDS = (64, 128, 160, 192, 224, 256, 320, 384, 512, 768)
+# ... and its row counts at 768 ids a row
+CROSSOVER_ROWS = (4096, 8192, 16_384, 32_768, 65_536)
 SERVED_ROWS = 8192  # passages of phase 10's CLI and server corpus
 # served against serial answers: on the H100 both servers' scores came
 # out bit-equal to a serial retrieve (largest gap 0.0, no id differing);
@@ -204,6 +226,14 @@ TP_RTOL = 1e-4
 # logged: svdr_nq's warmup makes the first lr 0, so they are the start's
 TP_NORM_RTOL = 1e-3
 TP_GRAD_SUM_RTOL = 1e-1
+
+
+# the launch counter (bitpack.LAUNCHES) of each kernel of the kernels line
+COUNTERS = {"pack_ell": "pack", "bitpack_scores": "scores",
+            "bucketed_keys": "bucketed",
+            "int8_bucketed_keys": "int8_bucketed",
+            "bitpack_scores_plane": "scores_plane",
+            "bucketed_keys_plane": "bucketed_plane"}
 
 
 def log(msg: str) -> None:
@@ -423,6 +453,30 @@ def kernel_checks_small(torch, bp, dev) -> None:
                             bp.bucket_keys(words, qT, n, bucket)),
                 f"scores kernel, spliced and folded, != bucketed kernel "
                 f"(bucket {bucket}, random)")
+    # the plane forms (tensor cores) of #2 and #3 at the same shape
+    for bb in (b, 40):  # one query tile and two
+        dyp = torch.from_numpy((rng.integers(0, 129, size=(
+            words.shape[1] * 32, bb)) / 16.0).astype(np.float32)).to(dev)
+        dyp[v:] = 0
+        dyp = dyp.to(torch.bfloat16)
+        require(torch.equal(bp.score_bits(words, dyp, v, _form="plane"),
+                            bp.score_bits_plain(words, dyp)),
+                f"scores plane form != plain (dyadic, B={bb})")
+        for bucket in (8, 16):
+            require(torch.equal(
+                bp.bucket_keys(words, dyp, n, bucket, v, _form="plane"),
+                bp.bucket_keys_plain(words, dyp, n, bucket)),
+                f"bucketed plane form (bucket {bucket}) != plain (dyadic, "
+                f"B={bb})")
+    s_pl = bp.score_bits(words, qT, v, _form="plane")
+    require(torch.allclose(s_pl, s_p, rtol=1e-5, atol=1e-5),
+            "scores plane form != plain (random)")
+    for bucket in (8, 16):
+        require(torch.equal(bp.splice_keys(s_pl, n, bucket),
+                            bp.bucket_keys(words, qT, n, bucket, v,
+                                           _form="plane")),
+                f"scores plane form, spliced and folded, != bucketed plane "
+                f"form (bucket {bucket}, random)")
     q8T = bp.prepare_queries_int8(
         torch.from_numpy(np.abs(rng.normal(size=(b, v)))
                          .astype(np.float32)).to(dev), words.shape[1] * 32)
@@ -435,7 +489,8 @@ def kernel_checks_small(torch, bp, dev) -> None:
     log("kernels at ragged shape (n=2500, V=5000, B=7): pack, scores, "
         "bucketed (buckets 8, 16), int8 bucketed (buckets 8, 16) agree "
         "with plain; scores spliced and folded == bucketed keys (random "
-        "weights)")
+        "weights); the plane forms of scores and bucketed (B=7 and 40) "
+        "agree with plain, and their spliced scores == their keys")
 
 
 def main() -> int:
@@ -615,8 +670,8 @@ def main() -> int:
                           .astype(np.float32)).to(dev)
     dy[ell.num_cols:] = 0
     dyT = dy.to(torch.bfloat16)
-    require(torch.equal(bp.bucket_keys(bits, dyT, n),
-                        bp.bucket_keys_plain(bits, dyT, n)),
+    keys_dy = bp.bucket_keys_plain(bits, dyT, n)
+    require(torch.equal(bp.bucket_keys(bits, dyT, n), keys_dy),
             "bucketed keys not bit-identical under dyadic queries")
     ms3 = time_ms(lambda: bp.bucket_keys(bits, qT, n), 10)
     bytes3 = bits.numel() * 4 + qT.numel() * 2 + keys_k.numel() * 4
@@ -627,7 +682,25 @@ def main() -> int:
     log("    " + geometry_line(
         ptx, "bucketed", bp.fold_geometry(bits.shape[0], bp.BUCKET, B,
                                           bits.shape[1]), ms3, bytes3))
-    del keys_k, keys_p
+    # the plane forms on the same inputs: rows of ~78 ids lie below the
+    # crossover, so the main path does not take them (their entries come
+    # from phase 9's rows of 768 ids)
+    v_main = ell.num_cols
+    plane = lambda w, t: bp.bucket_keys(w, t, n, bp.BUCKET, v_main,
+                                        _form="plane")
+    require(torch.equal(plane(bits, dyT), keys_dy),
+            "bucketed plane form not bit-identical under dyadic queries")
+    err_pl = float((dec(plane(bits, qT)) - dec(keys_p)).abs().max())
+    require(err_pl <= 2.0 ** -12 * scale,
+            f"bucketed plane form keys differ by {err_pl} (scale {scale})")
+    ms3p = time_ms(lambda: plane(bits, qT), 5)
+    log(f"  bucketed_keys, plane form, at these rows ({nbits / n:.1f} ids "
+        f"a row, below the crossover of {bp.PLANE_MIN_BITS}): bit-identical"
+        f" to plain (dyadic), max_abs_err {err_pl} (query); {ms3p:.3f} ms "
+        f"against the gather form's {ms3:.3f} ms")
+    main_fields = {"bucketed_keys_plane": dict(bot_ms=ms3p,
+                                               bot_max_abs_err=err_pl)}
+    del keys_k, keys_p, keys_dy
 
     ell_s, words_s = idx_small.ell, idx_small.bitmat.words
     qT_s = bp.prepare_queries(q, idx_small.bitmat)
@@ -659,6 +732,21 @@ def main() -> int:
     log("    " + geometry_line(
         ptx, "scores", bp.score_geometry(words_s.shape[0], B,
                                          words_s.shape[1]), ms2, bytes2))
+    v_s = ell_s.num_cols
+    require(torch.equal(bp.score_bits(words_s, dyT, v_s, _form="plane"),
+                        bp.score_bits_plain(words_s, dyT)),
+            "scores plane form not bit-identical under dyadic queries")
+    err_sp = float((bp.score_bits(words_s, qT_s, v_s, _form="plane")
+                    - s_p).abs().max())
+    require(err_sp <= 1e-5 * max(float(s_p.abs().max()), 1.0),
+            f"scores plane form differs from plain by {err_sp}")
+    ms2p = time_ms(lambda: bp.score_bits(words_s, qT_s, v_s,
+                                         _form="plane"), 10)
+    log(f"  bitpack_scores, plane form, at these rows: bit-identical to "
+        f"plain (dyadic), max_abs_err {err_sp} (query); {ms2p:.3f} ms "
+        f"against the gather form's {ms2:.3f} ms")
+    main_fields["bitpack_scores_plane"] = dict(bot_ms=ms2p,
+                                               bot_max_abs_err=err_sp)
 
     # -- phase 7: outputs -----------------------------------------------------
     for res in res_big:
@@ -730,14 +818,31 @@ def main() -> int:
     served = phase_serving(torch, bp, dev, args, retriever, queries,
                            served_texts, alpha["index"])
     log(f"phases 9 and 10 took {time.perf_counter() - t_910:.1f} s")
+    # the plane forms: their main path is phase 9's rows of 768 ids (and
+    # its fallback on 8,192 of them); phase 6's rows lie below the
+    # crossover width
+    for kname, source, replaces in (
+            ("bitpack_scores_plane", "scores_plane.cu", 325),
+            ("bucketed_keys_plane", "bucketed_plane.cu", 412)):
+        f = alpha["plane"]["fields"][kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"vsearch_tpu_torch/ops/csrc/{source}",
+            "replaces": f"vsearch_tpu/ops/bitpack.py:{replaces}",
+            "launches": 0,
+            "max_abs_err": f.pop("max_abs_err"), "ms": f.pop("ms"),
+            "plain_ms": f.pop("plain_ms"), "bound_ms": f.pop("bound_ms"),
+            "bound_by": f.pop("bound_by"),
+            "library_ms": f.pop("library_ms", None)})
+        kernels[-1].update(f, **main_fields[kname])
+        log(f"  {kname}: {kernels[-1]['ms']:.3f} ms (plain "
+            f"{kernels[-1]['plain_ms']:.3f} ms, bound "
+            f"{kernels[-1]['bound_ms']:.3f} ms, library "
+            f"{kernels[-1]['library_ms']})")
     for e in kernels:  # the launches of phases 9 and 10's paths
         for counts in (alpha["launch_alpha"], alpha["launch_fallback"],
-                       *served["launches"]):
-            e["launches"] += counts[{"pack_ell": "pack",
-                                     "bitpack_scores": "scores",
-                                     "bucketed_keys": "bucketed",
-                                     "int8_bucketed_keys": "int8_bucketed"}
-                                    [e["name"]]]
+                       *alpha["plane"]["launches"], *served["launches"]):
+            e["launches"] += counts[COUNTERS[e["name"]]]
         e.update(alpha["fields"].get(e["name"], {}))
     del alpha, served
     gc.collect()
@@ -749,10 +854,7 @@ def main() -> int:
                        served_texts, ptx)
     log(f"phase 11 took {time.perf_counter() - t_11:.1f} s")
     for e in kernels:  # the launches of phase 11's bitproxy path
-        e["launches"] += p11["launches"][{
-            "pack_ell": "pack", "bitpack_scores": "scores",
-            "bucketed_keys": "bucketed",
-            "int8_bucketed_keys": "int8_bucketed"}[e["name"]]]
+        e["launches"] += p11["launches"][COUNTERS[e["name"]]]
         e.update(p11["fields"].get(e["name"], {}))
     del p11
     gc.collect()
@@ -764,10 +866,7 @@ def main() -> int:
                             texts, bot_ell)
     log(f"phase 12 took {time.perf_counter() - t_12:.1f} s")
     for e in kernels:  # the launches of phase 12's mining path
-        e["launches"] += launch_12[{
-            "pack_ell": "pack", "bitpack_scores": "scores",
-            "bucketed_keys": "bucketed",
-            "int8_bucketed_keys": "int8_bucketed"}[e["name"]]]
+        e["launches"] += launch_12[COUNTERS[e["name"]]]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -775,11 +874,10 @@ def main() -> int:
     launch_13 = phase_mesh(torch, bp, dev, args, retriever, tok, words,
                            texts, queries, bot_ell, large, smi)
     for e in kernels:  # the launches of phase 13's sharded paths
-        e["launches"] += launch_13[{
-            "pack_ell": "pack", "bitpack_scores": "scores",
-            "bucketed_keys": "bucketed",
-            "int8_bucketed_keys": "int8_bucketed"}[e["name"]]]
-    require(all(launch_13.values()),
+        e["launches"] += launch_13[COUNTERS[e["name"]]]
+    # the plane forms serve dense rows, which phase 13's paths do not hold
+    require(all(launch_13[c] for c in ("pack", "scores", "bucketed",
+                                       "int8_bucketed")),
             f"phase 13's sharded paths skipped a kernel: {launch_13}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -855,43 +953,52 @@ def profile_by_kernel(torch, label: str, fn, parts: dict) -> None:
 
 
 def scores_at_block(torch, bp, blk, qT, dyT, rows: int, v: int,
-                    n_bits: int) -> dict:
-    """Kernel #2 on one packed block ``blk`` ([n_pad, W], its first
-    ``rows`` rows valid, ``v`` columns, ``n_bits`` set bits): bit-identical
-    to its plain version under the dyadic operand ``dyT``; under the query
-    operand ``qT`` within f32 rounding of it and, spliced and folded, equal
-    to kernel #3's keys; timed under ``qT`` beside its bound, its plain
-    version and the library yardstick (a bf16 matmul over the dense 0/1
-    rows, 65,536 rows at a time, so the dense operand stays ~4 GB)."""
-    require(torch.equal(bp.score_bits(blk, dyT),
-                        bp.score_bits_plain(blk, dyT)),
-            "scores kernel != plain at the block shape (dyadic)")
-    got, want = bp.score_bits(blk, qT), bp.score_bits_plain(blk, qT)
+                    n_bits: int, form: str = "gather",
+                    plain_ms=None, library_ms=None) -> dict:
+    """Kernel #2 in ``form`` on one packed block ``blk`` ([n_pad, W], its
+    first ``rows`` rows valid, ``v`` columns, ``n_bits`` set bits):
+    bit-identical to its plain version under the dyadic operand ``dyT``;
+    under the query operand ``qT`` within f32 rounding of it and, spliced
+    and folded, equal to kernel #3's keys in the same form; timed under
+    ``qT`` beside its bounds, its plain version and the library yardstick
+    (a bf16 matmul over the dense 0/1 rows, 65,536 rows at a time, so the
+    dense operand stays ~4 GB), each timed unless given."""
+    scores = lambda t: bp.score_bits(blk, t, v, _form=form)
+    require(torch.equal(scores(dyT), bp.score_bits_plain(blk, dyT)),
+            f"scores kernel ({form}) != plain at the block shape (dyadic)")
+    got, want = scores(qT), bp.score_bits_plain(blk, qT)
     err = float((got - want).abs().max())
     require(err <= 1e-5 * max(float(want.abs().max()), 1.0),
-            f"scores kernel differs from plain by {err} at the block shape")
-    require(torch.equal(bp.splice_keys(got, rows, bp.BUCKET),
-                        bp.bucket_keys(blk, qT, rows, bp.BUCKET)),
-            "scores kernel, spliced and folded, != bucketed kernel at the "
+            f"scores kernel ({form}) differs from plain by {err} at the "
             "block shape")
-    ms = time_ms(lambda: bp.score_bits(blk, qT), 20)
-    plain_ms = time_ms(lambda: bp.score_bits_plain(blk, qT), 1)
-    q_bf = qT[:v].T.contiguous()
-    library_ms = 0.0
-    for r0 in range(0, rows, SMALL_ROWS):
-        dense = bp._unpack_rows(blk[r0:min(r0 + SMALL_ROWS, rows)])[:, :v] \
-            .to(torch.bfloat16)
-        library_ms += time_ms(lambda: torch.matmul(q_bf, dense.T), 3)
-        del dense
+    require(torch.equal(bp.splice_keys(got, rows, bp.BUCKET),
+                        bp.bucket_keys(blk, qT, rows, bp.BUCKET, v,
+                                       _form=form)),
+            f"scores kernel ({form}), spliced and folded, != bucketed "
+            "kernel at the block shape")
+    del want
+    ms = time_ms(lambda: scores(qT), 20)
+    if plain_ms is None:
+        plain_ms = time_ms(lambda: bp.score_bits_plain(blk, qT), 1)
+    if library_ms is None:
+        q_bf = qT[:v].T.contiguous()
+        library_ms = 0.0
+        for r0 in range(0, rows, SMALL_ROWS):
+            dense = bp._unpack_rows(blk[r0:min(r0 + SMALL_ROWS, rows)]) \
+                [:, :v].to(torch.bfloat16)
+            library_ms += time_ms(lambda: torch.matmul(q_bf, dense.T), 3)
+            del dense
     nbytes = blk.numel() * 4 + qT.numel() * 2 + got.numel() * 4
-    bound_ms = max(nbytes / H100_BYTES_PER_S, n_bits * B / H100_F32_FLOPS) \
-        * 1e3
-    log(f"  kernel #2 on the same block: bit-identical to plain (dyadic), "
-        f"max_abs_err {err} (query), spliced == kernel #3's keys; "
-        f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms, "
-        f"library {library_ms:.3f} ms)")
+    bd = score_bounds(nbytes, n_bits, rows, v)
+    log(f"  kernel #2, {form} form, on the block ({n_bits / rows:.0f} ids "
+        f"a row): bit-identical to plain (dyadic), max_abs_err {err} "
+        f"(query), spliced == kernel #3's keys; {ms:.3f} ms (plain "
+        f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms by "
+        f"{bd['bound_by']}; {ms / bd['bound_ms']:.2f}x it; the plane form's "
+        f"tensor-core work {bd['tensor_bound_ms']:.3f} ms; library "
+        f"{library_ms:.3f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, max_abs_err=err, nbytes=nbytes)
+                max_abs_err=err, nbytes=nbytes, **bd)
 
 
 def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
@@ -1171,35 +1278,309 @@ def dyadic_operand(torch, rng, dev, vp: int, v: int, b: int = B):
     return dy.to(torch.bfloat16)
 
 
+def plane_flops(rows: int, num_cols: int, b: int = B) -> float:
+    """Tensor-core operations of the plane form over ``rows`` rows: each
+    bit plane below ``num_cols`` is a [rows, 128] x [128, b] product."""
+    return rows * (-(-num_cols // 128)) * 128 * 2 * b
+
+
+def score_bounds(nbytes: int, n_bits: int, rows: int, num_cols: int
+                 ) -> dict:
+    """The bounds of kernel #2 or #3 on ``rows`` rows of ``n_bits`` set
+    bits, in either form: the function's bound is the larger of its bytes
+    over the memory rate and its work, one f32 add a set bit and query,
+    over the f32 rate. ``tensor_bound_ms`` is the plane form's own work
+    (every bit plane below ``num_cols`` multiplied in bf16) and bounds no
+    form: most of its products multiply zeros."""
+    byte_bound = nbytes / H100_BYTES_PER_S * 1e3
+    ops_bound = n_bits * B / H100_F32_FLOPS * 1e3
+    return dict(bound_ms=max(byte_bound, ops_bound), byte_bound_ms=byte_bound,
+                tensor_bound_ms=plane_flops(rows, num_cols)
+                / H100_BF16_FLOPS * 1e3,
+                bound_by="bytes" if byte_bound >= ops_bound else "operations")
+
+
 def keys_at(torch, bp, ptx, label: str, words, qT, dyT, rows: int,
-            n_bits: int, reps: int = 10) -> dict:
-    """Kernel #3 at bucket 8 on ``words`` (``rows`` valid rows, ``n_bits``
-    set bits): bit-identical to its plain version under the dyadic operand
-    ``dyT``, within 2^-12 of the keys' scale under the query operand
-    ``qT``; timed under ``qT`` beside its bound and its plain version,
-    with its launch geometry."""
-    require(torch.equal(bp.bucket_keys(words, dyT, rows),
-                        bp.bucket_keys_plain(words, dyT, rows)),
-            f"bucketed kernel != plain ({label}, dyadic)")
-    got = bp.bucket_keys(words, qT, rows)
+            n_bits: int, num_cols: int, reps: int = 10,
+            form: str = "gather", plain_ms=None) -> dict:
+    """Kernel #3 at bucket 8 in ``form`` on ``words`` (``rows`` valid rows,
+    ``n_bits`` set bits): bit-identical to its plain version under the
+    dyadic operand ``dyT``, within 2^-12 of the keys' scale under the
+    query operand ``qT``; timed under ``qT`` beside its bounds
+    (``score_bounds``: the function's, the same for both forms, and the
+    plane form's tensor-core work) and its plain version (timed unless
+    ``plain_ms`` is given), with its launch geometry and, for the plane
+    form, the CTAs the runtime fits on an SM (at least 1)."""
+    keys = lambda t: bp.bucket_keys(words, t, rows, bp.BUCKET, num_cols,
+                                    _form=form)
+    require(torch.equal(keys(dyT), bp.bucket_keys_plain(words, dyT, rows)),
+            f"bucketed kernel ({form}) != plain ({label}, dyadic)")
+    got = keys(qT)
     want = bp.bucket_keys_plain(words, qT, rows)
     dec = lambda kk: (kk & ~1023).view(torch.float32).clamp_min(0)
     err = float((dec(got) - dec(want)).abs().max())
     scale = float(dec(want).max())
     require(err <= 2.0 ** -12 * scale,
-            f"bucketed keys differ by {err} ({label}, scale {scale})")
+            f"bucketed keys ({form}) differ by {err} ({label}, scale "
+            f"{scale})")
     del want
-    ms = time_ms(lambda: bp.bucket_keys(words, qT, rows), reps)
-    plain_ms = time_ms(lambda: bp.bucket_keys_plain(words, qT, rows), 1)
+    ms = time_ms(lambda: keys(qT), reps)
+    if plain_ms is None:
+        plain_ms = time_ms(lambda: bp.bucket_keys_plain(words, qT, rows), 1)
     nbytes = words.numel() * 4 + qT.numel() * 2 + got.numel() * 4
-    bound = max(nbytes / H100_BYTES_PER_S, n_bits * B / H100_F32_FLOPS) * 1e3
-    log(f"  kernel #3 ({label}): bit-identical to plain (dyadic), "
-        f"max_abs_err {err} (query); {ms:.3f} ms (plain {plain_ms:.3f} ms, "
-        f"bound {bound:.3f} ms, {ms / bound:.2f}x)")
+    bd = score_bounds(nbytes, n_bits, rows, num_cols)
+    log(f"  kernel #3, {form} form ({label}): bit-identical to plain "
+        f"(dyadic), max_abs_err {err} (query); {ms:.3f} ms (plain "
+        f"{plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms by "
+        f"{bd['bound_by']}; {ms / bd['bound_ms']:.2f}x it; the plane form's "
+        f"tensor-core work {bd['tensor_bound_ms']:.3f} ms)")
+    if form == "plane":
+        from vsearch_tpu_torch.ops import cuda_build
+        require(cuda_build.occupancy("bucketed_plane") >= 1,
+                "the plane form of #3 does not fit an SM")
+        geom = bp.plane_geometry(words.shape[0], B, words.shape[1], num_cols,
+                                 bp.BUCKET)
+    else:
+        geom = bp.fold_geometry(words.shape[0], bp.BUCKET, B, words.shape[1])
     log("    " + geometry_line(
-        ptx, "bucketed", bp.fold_geometry(words.shape[0], bp.BUCKET, B,
-                                          words.shape[1]), ms, nbytes))
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err)
+        ptx, "bucketed" if form == "gather" else "bucketed_plane", geom, ms,
+        nbytes))
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **bd)
+
+
+def crossover_table(torch, bp, dev, seed: int, v: int, qT) -> dict:
+    """Both forms of kernels #3 (bucket 8) and #2, B=32: on one
+    262,144-row block at each width of ``CROSSOVER_IDS`` ids a row, and at
+    768 ids a row on each row count of ``CROSSOVER_ROWS``; the times that
+    set ``bitpack.PLANE_MIN_BITS`` and ``bitpack.PLANE_MIN_ROWS``."""
+    def timed(n, ids):
+        c, z, _ = synth_alpha_rows(torch, dev, n, seed + ids + n, v, ids)
+        w = bp.pack_bits(c, z, v)
+        del c, z
+        t = {}
+        for form in bp.FORMS:
+            t[f"keys_{form}_ms"] = time_ms(lambda: bp.bucket_keys(
+                w, qT, n, bp.BUCKET, v, _form=form), 5)
+            t[f"scores_{form}_ms"] = time_ms(lambda: bp.score_bits(
+                w, qT, v, _form=form), 5)
+        return t
+
+    def line(r):
+        return (f"{r['keys_gather_ms']:.3f}/{r['keys_plane_ms']:.3f}, "
+                f"{r['scores_gather_ms']:.3f}/{r['scores_plane_ms']:.3f}")
+
+    def first(rows, key):
+        return min((r[key] for r in rows
+                    if r["keys_plane_ms"] < r["keys_gather_ms"]
+                    and r["scores_plane_ms"] < r["scores_gather_ms"]),
+                   default=None)
+
+    widths = [dict(ids=ids, **timed(BLOCK_ROWS, ids))
+              for ids in CROSSOVER_IDS]
+    counts = [dict(rows=n, **timed(n, DENSE_NNZ)) for n in CROSSOVER_ROWS]
+    log(f"  crossover of the forms on {BLOCK_ROWS} rows, B={B} (ms; ids a "
+        "row: #3 gather/plane, #2 gather/plane): " + "; ".join(
+            f"{r['ids']}: {line(r)}" for r in widths))
+    log(f"  crossover of the forms at {DENSE_NNZ} ids a row, B={B} (ms; "
+        "rows: #3 gather/plane, #2 gather/plane): " + "; ".join(
+            f"{r['rows']}: {line(r)}" for r in counts))
+    log(f"  the plane forms of #3 and #2 are both faster from "
+        f"{first(widths, 'ids')} ids a row and from {first(counts, 'rows')} "
+        f"rows in these tables; the rule takes them from "
+        f"bitpack.PLANE_MIN_BITS = {bp.PLANE_MIN_BITS} and PLANE_MIN_ROWS = "
+        f"{bp.PLANE_MIN_ROWS}")
+    return dict(widths=widths, rows=counts)
+
+
+def dense_alpha(torch, bp, dev, args, retriever, queries, ptx, dyT
+                ) -> dict:
+    """Phase 9's run at VDR's real density: ``--alpha-rows`` rows of
+    exactly 768 distinct ids (``embed_sparse``'s ``topk``) through
+    'auto' -> the binary-support proxy and ``Retriever.retrieve``, whose
+    kernel #3 must run in the plane form (counts zeroed before, read
+    after); recall at C = 196,608 // 768 against exact search (reported,
+    not gated); the plane form's candidates against the gather form's on
+    the same rows; #3 in the plane form at this shape; the fallback below
+    k (kernel #2 in the form ``row_form`` picks) on 4,096 and on 8,192 of
+    the rows against the CPU, both forms timed. The rows are freed before
+    it returns."""
+    from vsearch_tpu_torch.index import SparseIndex
+    from vsearch_tpu_torch.ops.ell import ELLMatrix, ell_matvec_chunked
+    from vsearch_tpu_torch.ops.search import top_k
+
+    n, v = args.alpha_rows, retriever.encoder_q.config.out_dim
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols, nnz, vals = synth_alpha_rows(torch, dev, n, args.seed + 2, v,
+                                       DENSE_NNZ)
+    idx = SparseIndex(device=dev)
+    idx.set_ell(ELLMatrix(cols=cols, nnz=nnz, vals=vals, num_cols=v,
+                          sentinel_padded=False))
+    ell = idx.ell
+    cand = idx.rerank_budget // ell.nnz_pad
+    torch.cuda.synchronize()
+    log(f"phase 9, VDR's density: {n} rows x {DENSE_NNZ} distinct ids made "
+        f"on the card in {time.perf_counter() - t0:.2f} s (cols "
+        f"{cols.numel() * 4 / 1e9:.2f} GB, values {vals.numel() * 2 / 1e9:.2f}"
+        f" GB); auto -> {'bitproxy' if idx._use_bitproxy() else 'exact'}, "
+        f"C = {idx.rerank_budget} // {ell.nnz_pad} = {cand}")
+    require(idx._use_bitproxy(), "'auto' did not route to the proxy")
+    bp.reset_launch_counts()
+    results, stages = [], []
+    for i in range(args.batches):
+        results.append(retriever.retrieve(queries[i * B:(i + 1) * B], k=K,
+                                          index=idx))
+        stages.append(dict(retriever.last_timings))
+    launches = dict(bp.LAUNCHES)
+    for i, st in enumerate(stages):
+        log(f"  batch {i}{' (packs the support)' if i == 0 else ''}: "
+            + ", ".join(f"{k} {t * 1e3:.1f} ms" for k, t in st.items()))
+    warm = stages[1:] or stages
+    total = sum(sum(st.values()) for st in warm)
+    bm = idx.bitproxy
+    log(f"  {B * len(warm) / total:.2f} queries/s over the {len(warm)} "
+        f"batches after the first (k={K}); rows of {bm.mean_bits:.1f} ids "
+        f"take kernel #3's {bm.form} form; launches {launches}")
+    require(bm.form == "plane" and launches["pack"] == 1
+            and launches["bucketed_plane"] >= args.batches
+            and launches["bucketed"] == 0,
+            f"the 768-id alpha path skipped the plane form: {launches}")
+    for res in results:
+        require(res.ids.shape == (B, K) and np.isfinite(res.scores).all()
+                and (np.diff(res.scores, axis=1) <= 1e-6).all()
+                and res.ids.min() >= 0 and res.ids.max() < n,
+                "768-id alpha results malformed")
+
+    q_emb = retriever.process_query(queries[:B])
+    q = torch.from_numpy(q_emb).to(dev)
+    t0 = time.perf_counter()
+    exact = ell_matvec_chunked(q, ell)
+    kth = top_k(exact, K)[0][:, K - 1:]
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    got = torch.gather(exact, 1, torch.from_numpy(results[0].ids).to(dev))
+    recall = float((got >= kth - 1e-3 * kth.clamp_min(1.0)).float().mean())
+    log(f"  recall at C={cand} vs exact search {recall:.4f} (not gated; "
+        f"exact search {exact_s * 1e3:.1f} ms a batch)")
+    del exact, got
+
+    # -- the two forms' candidates on the same rows ---------------------------
+    gather_bm = dataclasses.replace(bm, mean_bits=0.0)
+    ids_p, s_p = bp.bitpack_bucketed_topk(q, bm, k=cand)
+    ids_g, s_g = bp.bitpack_bucketed_topk(q, gather_bm, k=cand)
+    scale = float(s_g.max())
+    tol = 2.0 ** -12 * scale
+    gap = float((s_p - s_g).abs().max())
+    differ = untied = 0
+    for r, j in torch.nonzero(ids_p != ids_g).cpu().numpy():
+        differ += 1
+        near = (s_g[r] - s_g[r, j]).abs() <= tol
+        untied += not (int(near.sum()) > 1
+                       or float(s_g[r, j] - s_g[r, -1]) <= tol)
+    sel_p = time_ms(lambda: bp.bitpack_bucketed_topk(q, bm, k=cand), 5)
+    sel_g = time_ms(lambda: bp.bitpack_bucketed_topk(q, gather_bm, k=cand),
+                    3)
+    log(f"  plane-form candidates vs gather-form on the same rows: "
+        f"{differ} of {ids_p.numel()} ids differ, {untied} of them where "
+        f"keys are not tied (2^-12 of scale); largest score gap {gap} "
+        f"(scale {scale}); #3 + candidate top-{cand}: plane {sel_p:.3f} ms,"
+        f" gather {sel_g:.3f} ms")
+    require(untied == 0 and gap <= tol,
+            "the forms pick other candidates where keys are not tied")
+    qT = bp.prepare_queries(q, bm)
+    k3p = keys_at(torch, bp, ptx, f"{n} rows, {DENSE_NNZ} ids a row",
+                  bm.words, qT, dyT, n, n * DENSE_NNZ, v, reps=5,
+                  form="plane")
+    del results, ids_p, ids_g, s_p, s_g, gather_bm
+
+    # -- the fallback below k on these rows: kernel #2 in the rule's form ----
+    q_bf = q.to(torch.bfloat16)
+    fb_launches, fb_fields = [], {}
+    for fb, fb_k in DENSE_FALLBACKS:
+        outs = []
+        for d in (dev, "cpu"):
+            sidx = SparseIndex(search_mode="bitproxy", device=d)
+            sidx.set_ell(ELLMatrix(
+                cols=cols[:fb].to(d).contiguous(),
+                nnz=nnz[:fb].to(d).contiguous(),
+                vals=vals[:fb].to(d).contiguous(), num_cols=v,
+                sentinel_padded=False))
+            if d == dev:
+                torch.cuda.synchronize()
+                bp.reset_launch_counts()
+            outs.append(sidx.search(q_emb, k=fb_k))
+            if d == dev:
+                launch_fb = dict(bp.LAUNCHES)
+                fb_bits = sidx.bitproxy
+        form = fb_bits.form
+        other = "gather" if form == "plane" else "plane"
+        name = {"gather": "scores", "plane": "scores_plane"}
+        require(launch_fb[name[form]] >= 1 and launch_fb[name[other]] == 0,
+                f"the {fb}-row 768-id fallback skipped #2's {form} form: "
+                f"{launch_fb}")
+        fb_launches.append(launch_fb)
+        g, c = outs
+        require(same_topk(c.ids, c.scores, g.ids, g.scores, 1e-5),
+                f"{fb}-row 768-id bitproxy fallback on the card != on the "
+                "CPU")
+        words = fb_bits.words
+        qT_s = bp.prepare_queries(q, fb_bits)
+        s_pl = bp.score_bits_plain(words, qT_s)
+        t, errs = {}, {}
+        for f in bp.FORMS:
+            s_k = bp.score_bits(words, qT_s, v, _form=f)
+            errs[f] = float((s_k - s_pl).abs().max())
+            require(errs[f] <= 1e-5 * max(float(s_pl.abs().max()), 1.0),
+                    f"scores {f} form differs from plain by {errs[f]} "
+                    f"({fb}-row fallback)")
+            require(torch.equal(bp.score_bits(words, dyT, v, _form=f),
+                                bp.score_bits_plain(words, dyT)),
+                    f"scores {f} form != plain on the {fb}-row fallback's "
+                    "rows (dyadic)")
+            t[f] = time_ms(lambda: bp.score_bits(words, qT_s, v, _form=f),
+                           20)
+        plain_ms = time_ms(lambda: bp.score_bits_plain(words, qT_s), 2)
+        dense = bp._unpack_rows(words[:fb])[:, :v].to(torch.bfloat16)
+        lib_ms = time_ms(lambda: torch.matmul(q_bf, dense.T), 20)
+        del dense
+        nbytes = words.numel() * 4 + qT_s.numel() * 2 + s_pl.numel() * 4
+        bd = score_bounds(nbytes, fb * DENSE_NNZ, fb, v)
+        log(f"  fallback ({fb} rows of {DENSE_NNZ} ids, k={fb_k} > capped "
+            f"{min(cand, words.shape[0] // 8)}): card == CPU (rtol 1e-5); "
+            f"launches {launch_fb}; kernel #2 takes the {form} form; both "
+            f"forms bit-identical to plain (dyadic), max_abs_err "
+            f"{errs[form]} (query); {t[form]:.4f} ms ({other} form "
+            f"{t[other]:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, the plane form's "
+            f"tensor-core work {bd['tensor_bound_ms']:.4f} ms, library "
+            f"{lib_ms:.4f} ms)")
+        fb_fields[fb] = dict(form=form, ms=t[form], other_ms=t[other],
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             max_abs_err=errs[form], **bd)
+        del sidx, fb_bits, words, s_pl, outs, g, c
+    del idx, ell, cols, nnz, vals, bm, qT
+    gc.collect()
+    torch.cuda.empty_cache()
+    small, large = (fb_fields[fb] for fb, _ in DENSE_FALLBACKS)
+    require(small["form"] == "gather" and large["form"] == "plane",
+            f"the fallbacks took the forms {small['form']}, {large['form']}")
+    (rows_s, _), (rows_l, _) = DENSE_FALLBACKS
+    fields = {
+        "bucketed_keys_plane": dict(
+            alpha768_recall_c256=recall,
+            alpha768_queries_per_s=B * len(warm) / total,
+            alpha768_candidate_ids_differ=differ,
+            alpha768_select_ms=sel_p, alpha768_select_gather_ms=sel_g,
+            **k3p),
+        # the plane form of #2 at its main path's shape: the fallback on
+        # 8,192 rows of 768 ids
+        "bitpack_scores_plane": dict(
+            {k: x for k, x in large.items() if k not in ("form", "other_ms")},
+            fallback_rows=rows_l, gather_ms=large["other_ms"]),
+        # the 4,096-row fallback of 768 ids stays in the gather form
+        "bitpack_scores": {f"fallback{rows_s}x768_{k}": x
+                           for k, x in small.items() if k != "form"}}
+    return dict(launches=(launches, *fb_launches), fields=fields)
 
 
 def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
@@ -1302,10 +1683,11 @@ def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
     dyT = dyadic_operand(torch, rng, dev, vp, v)
     n_bits = n * ALPHA_NNZ
     k3 = keys_at(torch, bp, ptx, f"{n} rows, {ALPHA_NNZ} ids a row", words,
-                 qT, dyT, n, n_bits)
+                 qT, dyT, n, n_bits, v)
     blk = words[:BLOCK_ROWS]
     k3b = keys_at(torch, bp, ptx, f"{BLOCK_ROWS}-row block, {ALPHA_NNZ} ids "
-                  "a row", blk, qT, dyT, BLOCK_ROWS, BLOCK_ROWS * ALPHA_NNZ)
+                  "a row", blk, qT, dyT, BLOCK_ROWS, BLOCK_ROWS * ALPHA_NNZ,
+                  v)
     cand_ids, _ = bp.bitpack_bucketed_topk(q, idx.bitproxy, k=cand)
     rr_ms = time_ms(lambda: ts.exact_rerank(q, ell, cand_ids, K), 10)
     sel_ms = time_ms(lambda: bp.bitpack_bucketed_topk(q, idx.bitproxy,
@@ -1313,19 +1695,41 @@ def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
     log(f"  first stage split: #3 + candidate top-{cand} {sel_ms:.3f} ms, "
         f"exact_rerank [{B}, {cand}] x {ell.nnz_pad} {rr_ms:.3f} ms")
 
-    # -- kernel #3 at 768 ids a row (embed_sparse's rows at BERT width) -----
+    # -- kernels #3 and #2 at 768 ids a row (embed_sparse's rows at BERT
+    # width), in both forms --------------------------------------------------
     c768, z768, _ = synth_alpha_rows(torch, dev, BLOCK_ROWS, args.seed + 1,
                                      v, 768)
     w768 = bp.pack_bits(c768, z768, v)
     require(torch.equal(w768, bp.pack_bits_plain(c768, z768, v)),
             "pack kernel != plain at 768 ids a row")
-    k768 = keys_at(torch, bp, ptx, f"{BLOCK_ROWS}-row block, 768 ids a row",
-                   w768, qT, dyT, BLOCK_ROWS, BLOCK_ROWS * 768)
-    del c768, z768, w768
+    del c768, z768
+    lab = f"{BLOCK_ROWS}-row block, 768 ids a row"
+    k768 = keys_at(torch, bp, ptx, lab, w768, qT, dyT, BLOCK_ROWS,
+                   BLOCK_ROWS * 768, v)
+    k768p = keys_at(torch, bp, ptx, lab, w768, qT, dyT, BLOCK_ROWS,
+                    BLOCK_ROWS * 768, v, form="plane",
+                    plain_ms=k768["plain_ms"])
+    s768 = scores_at_block(torch, bp, w768, qT, dyT, BLOCK_ROWS, v,
+                           BLOCK_ROWS * 768)
+    s768p = scores_at_block(torch, bp, w768, qT, dyT, BLOCK_ROWS, v,
+                            BLOCK_ROWS * 768, form="plane",
+                            plain_ms=s768["plain_ms"],
+                            library_ms=s768["library_ms"])
+    del w768
+    cross = crossover_table(torch, bp, dev, args.seed, v, qT)
     fields["bucketed_keys"] = {
         **{f"alpha_{k}": x for k, x in k3.items()},
         **{f"alpha_block_{k}": x for k, x in k3b.items()},
         **{f"ids768_{k}": x for k, x in k768.items()}}
+    fields["bitpack_scores"] = {f"ids768_{k}": x for k, x in s768.items()
+                                if k != "nbytes"}
+    plane = dense_alpha(torch, bp, dev, args, retriever, queries, ptx, dyT)
+    plane["fields"]["bucketed_keys_plane"].update(
+        {f"block768_{k}": x for k, x in k768p.items()},
+        crossover=cross)
+    plane["fields"]["bitpack_scores_plane"].update(
+        {f"block768_{k}": x for k, x in s768p.items() if k != "nbytes"})
+    fields["bitpack_scores"].update(plane["fields"].pop("bitpack_scores"))
 
     # -- the fallback below k candidates: kernel #2, against the CPU --------
     small = ELLMatrix(cols=cols[:4096].contiguous(),
@@ -1375,13 +1779,13 @@ def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
         f"bit-identical to plain (dyadic), max_abs_err {fb_err} (query), "
         f"{fb_ms:.4f} ms (plain {fb_plain:.3f} ms, bound {fb_bound:.4f} ms, "
         f"library {fb_lib:.4f} ms)")
-    fields["bitpack_scores"] = dict(fallback_ms=fb_ms,
+    fields["bitpack_scores"].update(fallback_ms=fb_ms,
                                     fallback_plain_ms=fb_plain,
                                     fallback_bound_ms=fb_bound,
                                     fallback_library_ms=fb_lib,
                                     fallback_max_abs_err=fb_err)
     return dict(index=idx, launch_alpha=launch_alpha,
-                launch_fallback=launch_fallback, fields=fields)
+                launch_fallback=launch_fallback, fields=fields, plane=plane)
 
 
 def http(url: str, payload=None):
@@ -1602,11 +2006,15 @@ def phase_serving(torch, bp, dev, args, retriever, queries, texts,
         launches.append(dict(bp.LAUNCHES))
         log(f"  CLI-built alpha index through the proxy: rows of "
             f"{nnz_h.mean():.1f} ids on average (max {nnz_h.max()}), "
-            f"C = {aidx.rerank_budget // aidx.ell.nnz_pad}; recall vs exact "
+            f"C = {aidx.rerank_budget // aidx.ell.nnz_pad}, kernel #3's "
+            f"{aidx.bitproxy.form} form; recall vs exact "
             f"{rec:.4f} (not gated); pack == plain; launches of the CLI "
             f"section {launches[-1]}")
+        # the proxy's kernel #3 in the form of the rows' width
+        fold = COUNTERS["bucketed_keys_plane" if aidx.bitproxy.form == "plane"
+                        else "bucketed_keys"]
         require(launches[-1]["pack"] >= 2 and launches[-1]["scores"] >= 1
-                and launches[-1]["bucketed"] >= 1,
+                and launches[-1][fold] >= 1,
                 f"CLI section skipped kernels: {launches[-1]}")
         del loaded, aidx, exact, got, q
         gc.collect()
@@ -2056,7 +2464,10 @@ def phase_crossmodal(torch, bp, dev, args, tok, words, ptx, work: str
         proxy.append(xm.retrieve(queries[i * B:(i + 1) * B], k=K))
         stages.append(dict(xm.last_timings))
     launches = dict(bp.LAUNCHES)
-    require(launches["pack"] == 1 and launches["bucketed"] >= args.batches,
+    # rows of 768 ids: kernel #3 runs in the plane form
+    require(idx.bitproxy.form == "plane" and launches["pack"] == 1
+            and launches["bucketed_plane"] >= args.batches
+            and launches["bucketed"] == 0,
             f"cross-modal bitproxy skipped kernels: {launches}")
     recall = float(np.mean([np.mean(p.scores >= e.scores[:, -1:]
                                     - 1e-3 * np.abs(e.scores[:, -1:]))
@@ -2082,13 +2493,17 @@ def phase_crossmodal(torch, bp, dev, args, tok, words, ptx, work: str
     q = torch.from_numpy(q_emb).to(dev)
     qT = bp.prepare_queries(q, idx.bitproxy)
     dyT = dyadic_operand(torch, rng, dev, words_bits.shape[1] * 32, v)
-    k3 = keys_at(torch, bp, ptx, f"{n} image rows of 768 ids, V={v}",
-                 words_bits, qT, dyT, n, n * 768)
+    lab = f"{n} image rows of 768 ids, V={v}"
+    k3 = keys_at(torch, bp, ptx, lab, words_bits, qT, dyT, n, n * 768, v)
+    k3p = keys_at(torch, bp, ptx, lab, words_bits, qT, dyT, n, n * 768, v,
+                  form="plane", plain_ms=k3["plain_ms"])
     return dict(launches=launches, fields={
         "pack_ell": dict(crossmodal_ms=pack_ms, crossmodal_plain_ms=pack_plain,
                          crossmodal_bound_ms=pack_bound),
-        "bucketed_keys": {**{f"crossmodal_{k}": x for k, x in k3.items()},
-                          "crossmodal_recall_c256": recall}})
+        "bucketed_keys": {f"crossmodal_{k}": x for k, x in k3.items()},
+        "bucketed_keys_plane": {**{f"crossmodal_{k}": x
+                                   for k, x in k3p.items()},
+                                "crossmodal_recall_c256": recall}})
 
 
 def run_cli(main, argv) -> dict:

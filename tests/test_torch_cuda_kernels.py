@@ -2,6 +2,8 @@
 the card. They need an NVIDIA GPU with ``nvcc`` (Hopper, sm_90a) and skip
 elsewhere; ``python3 chip_smoke.py`` runs the same checks at the main
 path's shapes."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -163,36 +165,54 @@ def test_scores_share_the_fold_order(fold_case, b):
                            bp.bucket_keys(words, qT, n, bucket))
 
 
+@functools.lru_cache(maxsize=2)
+def rows_of_768_ids(n, v=29523, kk=768):
+    """``n`` rows of exactly ``kk`` distinct ids of ``v`` (weights 0.5 +
+    U[0, 1)) and 8 queries of 768 ids, from a seed."""
+    rng = np.random.default_rng(9)
+    cols = np.concatenate([
+        np.argpartition(rng.random((256, v)), kk, axis=1)[:, :kk]
+        for _ in range(n // 256)]).astype(np.int32)
+    vals = (0.5 + rng.random((n, kk))).astype(np.float32)
+    q = np.zeros((8, v), np.float32)
+    for i in range(8):
+        q[i, rng.choice(v, 768, replace=False)] = rng.random(768)
+    return cols, vals, q
+
+
+@pytest.mark.parametrize("n", [4096, bp.PLANE_MIN_ROWS])
 @pytest.mark.parametrize("k,num_candidates,kernel", [
-    # capped = min(256, 4096 // 8, rows) = 256 >= k, and 256 * 8 <= rows:
+    # capped = min(256, n // 8, rows) = 256 >= k, and 256 * 8 <= rows:
     # kernel #3's route
     (10, 256, "bucketed"),
-    (600, 700, "scores"),  # capped = 4096 // 8 = 512 < k: kernel #2
+    # capped = min(500, n // 8) = 500 < k: kernel #2
+    (600, 500, "scores"),
 ])
 def test_bitproxy_card_matches_cpu_at_768_ids(dev, k, num_candidates,
-                                              kernel):
+                                              kernel, n):
     """Alpha search through the binary-support proxy on rows of 768
     distinct ids (``embed_sparse``'s top-k at BERT width, more set bits a
     row than the kernels' decode list holds): the pack is bit-identical,
     kernel #3's keys are bit-identical under dyadic weights, and the
     search on the card equals the search on the CPU (ids up to f32 near
-    ties, scores within 1e-5 relative)."""
+    ties, scores within 1e-5 relative). The rows are above the crossover
+    width, so an index of ``PLANE_MIN_ROWS`` rows runs the plane form and
+    one of 4,096 rows the gather form (``row_form``); both forms are held
+    to the plain versions under dyadic weights."""
     from vsearch_tpu_torch.ops import two_stage as ts
     from vsearch_tpu_torch.ops.ell import ELLMatrix
 
-    rng = np.random.default_rng(9)
-    n, v, kk = 4096, 29523, 768
-    cols = np.concatenate([np.argsort(rng.random((256, v)), axis=1)[:, :kk]
-                           for _ in range(n // 256)]).astype(np.int32)
-    vals = (0.5 + rng.random((n, kk))).astype(np.float32)
+    v, kk = 29523, 768
+    cols, vals, q = rows_of_768_ids(n)
     nnz = np.full(n, kk, np.int32)
-    q = np.zeros((8, v), np.float32)
-    for i in range(8):
-        q[i, rng.choice(v, 768, replace=False)] = rng.random(768)
+    rng = np.random.default_rng(n)
+    form = "plane" if n >= bp.PLANE_MIN_ROWS else "gather"
+    kernel += "_plane" if form == "plane" else ""
     out = []
     for d in ("cpu", dev):
         ell = ELLMatrix.from_arrays(cols, nnz, vals, v, False, d)
         bm = bp.pack_ell(ell)
+        assert bm.form == form
         before = dict(bp.LAUNCHES)
         ids, scores = ts.binary_proxy_search(
             torch.from_numpy(q).to(d), ell, bm, k=k,
@@ -218,3 +238,113 @@ def test_bitproxy_card_matches_cpu_at_768_ids(dev, k, num_candidates,
                        bp.bucket_keys_plain(words, qT, n))
     assert torch.equal(bp.score_bits(words, qT),
                        bp.score_bits_plain(words, qT))
+    for form in bp.FORMS:
+        assert torch.equal(bp.bucket_keys(words, qT, n, 8, v, _form=form),
+                           bp.bucket_keys_plain(words, qT, n)), form
+        assert torch.equal(bp.score_bits(words, qT, v, _form=form),
+                           bp.score_bits_plain(words, qT)), form
+
+
+@pytest.mark.parametrize("name", ["scores_plane", "bucketed_plane"])
+def test_plane_shared_memory_fits_the_card(dev, name):
+    """A plane-form CTA (4 warpgroups and a producer warp, the ring of
+    query slices in dynamic shared memory, #3's slots) takes one tile of
+    32 queries whatever B, so its registers and shared memory are the
+    same at any B; the CUDA runtime fits at least one on an SM."""
+    from vsearch_tpu_torch.ops import cuda_build
+
+    assert cuda_build.occupancy(name) >= 1
+
+
+def dense_words(dev, n, v, ids, seed):
+    """Packed rows of exactly ``ids`` distinct columns of ``v``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cols = torch.rand((n, v), generator=gen, device=dev).argsort(dim=1)
+    cols = cols[:, :ids].sort(dim=1).values.to(torch.int32)
+    return bp.pack_bits(cols, torch.full((n,), ids, dtype=torch.int32,
+                                         device=dev), v)
+
+
+@pytest.fixture(scope="module", params=["ragged", "768 ids"])
+def plane_case(request, dev):
+    """(words, rows, columns): the ragged shape of the kernel checks
+    (2,500 rows of 0-128 ids, V=5,000) and 8,192 rows of 768 ids at
+    V'=29,523 (the plane form's rows)."""
+    if request.param == "ragged":
+        rng = np.random.default_rng(1)
+        n, v, nnz_pad = 2500, 5000, 128
+        nnz = rng.integers(0, nnz_pad + 1, size=n).astype(np.int32)
+        cols = np.full((n, nnz_pad), v, np.int32)
+        for i in range(n):
+            cols[i, : nnz[i]] = rng.choice(v, size=int(nnz[i]),
+                                           replace=False)
+        return bp.pack_bits(torch.from_numpy(cols).to(dev),
+                            torch.from_numpy(nnz).to(dev), v), n, v
+    return dense_words(dev, 8192, 29_523, 768, 3), 8192, 29_523
+
+
+@pytest.mark.parametrize("b", [1, 7, 32, 45])
+def test_plane_forms_match_plain(plane_case, b):
+    """The plane forms of #2 and #3 equal their plain versions bit for bit
+    under dyadic weights; under real weights #2 within f32 rounding and
+    #3's keys within 2^-12 of their scale; #3's keys are #2's plane
+    scores spliced and folded, bit for bit."""
+    words, n, v = plane_case
+    dev, vp = words.device, words.shape[1] * 32
+    rng = np.random.default_rng(b)
+    dy = torch.from_numpy((rng.integers(0, 129, size=(vp, b)) / 16.0)
+                          .astype(np.float32)).to(dev)
+    dy[v:] = 0
+    dy = dy.to(torch.bfloat16)
+    before = dict(bp.LAUNCHES)
+    assert torch.equal(bp.score_bits(words, dy, v, _form="plane"),
+                       bp.score_bits_plain(words, dy))
+    for bucket in (8, 16):
+        assert torch.equal(
+            bp.bucket_keys(words, dy, n, bucket, v, _form="plane"),
+            bp.bucket_keys_plain(words, dy, n, bucket))
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES["scores_plane"] == before["scores_plane"] + 1
+    assert bp.LAUNCHES["bucketed_plane"] == before["bucketed_plane"] + 2
+    assert bp.LAUNCHES["scores"] == before["scores"]
+    qr = torch.rand((vp, b), device=dev)
+    qr[v:] = 0
+    qT = qr.to(torch.bfloat16)
+    got, want = bp.score_bits(words, qT, v, _form="plane"), \
+        bp.score_bits_plain(words, qT)
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    dec = lambda kk: (kk & ~1023).view(torch.float32).clamp_min(0)
+    keys = bp.bucket_keys(words, qT, n, 8, v, _form="plane")
+    ref = bp.bucket_keys_plain(words, qT, n)
+    assert float((dec(keys) - dec(ref)).abs().max()) <= \
+        2.0 ** -12 * float(dec(ref).max())
+    for bucket in (8, 16):
+        assert torch.equal(
+            bp.splice_keys(got, n, bucket),
+            bp.bucket_keys(words, qT, n, bucket, v, _form="plane"))
+
+
+def test_forms_give_equal_candidates_at_768_ids(dev):
+    """On one index of 768-id rows the two forms pick the same candidate
+    rows, apart from rows whose keys tie: a row whose score lies within
+    the keys' 2^-12 of another candidate's, or of the cut."""
+    n, v = 65_536, 29_523
+    words = dense_words(dev, n, v, 768, 5)
+    plane = bp.BitMatrix(words=words, num_rows=n, num_cols=v,
+                         mean_bits=768.0)
+    gather = bp.BitMatrix(words=words, num_rows=n, num_cols=v)
+    assert (plane.form, gather.form) == ("plane", "gather")
+    q = torch.rand((32, v), device=dev)
+    before = dict(bp.LAUNCHES)
+    ids_p, s_p = bp.bitpack_bucketed_topk(q, plane, k=256)
+    ids_g, s_g = bp.bitpack_bucketed_topk(q, gather, k=256)
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES["bucketed_plane"] == before["bucketed_plane"] + 1
+    assert bp.LAUNCHES["bucketed"] == before["bucketed"] + 1
+    scale = float(s_g.max())
+    assert float((s_p - s_g).abs().max()) <= 2.0 ** -12 * scale
+    for r, j in zip(*torch.nonzero(ids_p != ids_g).cpu().numpy().T):
+        tol = 2.0 ** -12 * scale
+        near = (s_g[r] - s_g[r, j]).abs() <= tol
+        assert int(near.sum()) > 1 or float(s_g[r, j] - s_g[r, -1]) <= tol, \
+            (r, j)

@@ -102,8 +102,11 @@ class DenseIndex:
     selection = "exact"
 
     def __init__(self, index_file: Optional[str] = None,
-                 data_file: Optional[str] = None, low_memory: bool = False,
-                 dtype=torch.bfloat16, device="cuda"):
+                 data_file: Optional[str] = None, fp16: bool = True,
+                 low_memory: bool = False, dtype=torch.bfloat16,
+                 device="cuda"):
+        # the JAX package's arguments in its order; ``fp16`` is accepted
+        # and unused there too (``dtype`` sets the stored type)
         self.device = resolve_device(device)
         self.data: Optional[List[Any]] = None
         self.vector: Optional[torch.Tensor] = None
@@ -112,12 +115,13 @@ class DenseIndex:
         self._lazy: Optional[_JsonlOffsets] = None
         self._drop_mesh()
         if index_file:
-            self.init_index(index_file)
+            self.init_index(index_file, fp16)
         if data_file:
             self.load_data(data_file)
 
     # -- loading -----------------------------------------------------------
-    def init_index(self, index_file: Union[str, Sequence[str]]):
+    def init_index(self, index_file: Union[str, Sequence[str]],
+                   fp16: bool = True):
         """Load one or more shards (``.npy``, ``.npz``, ``.pt``) in their
         stored dtype and write them into one device tensor shard by
         shard: no concatenated or f32 host copy of the whole index."""

@@ -49,9 +49,10 @@ class SparseIndex(DenseIndex):
     rerank_budget = 196_608
 
     def __init__(self, index_file: Optional[str] = None,
-                 data_file: Optional[str] = None, low_memory: bool = False,
-                 shift: int = 0,
-                 val_dtype=torch.bfloat16, search_mode: str = "auto",
+                 data_file: Optional[str] = None, fp16: bool = True,
+                 low_memory: bool = False, shift: int = 0,
+                 val_dtype=torch.bfloat16, block_rows: int = 4096,
+                 search_mode: str = "auto",
                  selection: Optional[str] = None, device="cuda"):
         if search_mode in ("stream", "block") and not self._binary:
             # the over-size tiers pack blocks to bits: binary only, a
@@ -64,13 +65,15 @@ class SparseIndex(DenseIndex):
                 f"{type(self).__name__} (available: {self._search_modes})")
         self.shift = shift
         self.val_dtype = val_dtype
+        # rows of a sharded exact search's scoring chunk / 16
+        self.block_rows = block_rows
         self.search_mode = search_mode
         if selection is not None:  # else the class default applies
             self.selection = selection
         self.ell: Optional[ELLMatrix] = None
         self._reset_derived()
-        super().__init__(index_file, data_file, low_memory=low_memory,
-                         device=device)
+        super().__init__(index_file, data_file, fp16,
+                         low_memory=low_memory, device=device)
 
     def _reset_derived(self):
         """Drop everything derived from the ELL: a reload that kept the
@@ -89,7 +92,8 @@ class SparseIndex(DenseIndex):
         return self.device
 
     # -- loading -----------------------------------------------------------
-    def init_index(self, index_file: Union[str, Sequence[str]]):
+    def init_index(self, index_file: Union[str, Sequence[str]],
+                   fp16: bool = True):
         files = _resolve_files(index_file)
         logger.info("Loading %s index from %d file(s)",
                     self.index_type.value, len(files))
@@ -207,7 +211,9 @@ class SparseIndex(DenseIndex):
 
         mesh, axis_name = self._mesh
         search = make_sharded_ell_search(
-            mesh, k, self._shards, score_fn=ell_matvec_chunked,
+            mesh, k, self._shards,
+            score_fn=lambda qq, shard: ell_matvec_chunked(
+                qq, shard, chunk_rows=self.block_rows * 16),
             axis_name=axis_name, num_rows=self._true_rows)
         return _results(*search(q, self._shards))
 

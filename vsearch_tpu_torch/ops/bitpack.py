@@ -5,7 +5,12 @@ Binary passage rows live bit-packed in device memory (4 KB a row at
 V' = 29,523) and are scored by hand-written CUDA kernels
 (``csrc/*.cu``): the pack (#1), the exact scorer (#2), the fused
 score-and-bucket kernel (#3) and its integer twin over an int8 query
-operand (#4). Each kernel wrapper below launches its kernel on a CUDA
+operand (#4). #2 and #3 each have two forms: the gather form
+(``bitrow.cuh``) sums a row's set bits, the plane form (``planes.cuh``)
+multiplies its bit planes on the tensor cores; rows of at least
+``PLANE_MIN_BITS`` set bits in an index of at least ``PLANE_MIN_ROWS``
+rows take the plane form (``row_form``). Each
+kernel wrapper below launches its kernel on a CUDA
 tensor and runs its plain PyTorch twin (same signature, ``*_plain``) on a
 CPU tensor; there is no other fallback. The twins are also what the tests
 and ``chip_smoke.py`` hold the kernels against.
@@ -23,7 +28,8 @@ them back unchanged.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +51,8 @@ INT32_MIN = -(2 ** 31)
 # launches of each CUDA kernel since the last reset: a run can show that
 # its main path went through the kernels
 LAUNCHES: Dict[str, int] = {"pack": 0, "scores": 0, "bucketed": 0,
-                            "int8_bucketed": 0}
+                            "int8_bucketed": 0, "scores_plane": 0,
+                            "bucketed_plane": 0}
 
 
 def reset_launch_counts() -> None:
@@ -65,6 +72,13 @@ class BitMatrix:
     words: torch.Tensor  # [N_pad, num_words] int32 (uint32 bit patterns)
     num_rows: int
     num_cols: int
+    # mean set bits a row, which with the padded row count picks the form
+    # of kernels #2 and #3 (``row_form``); 0 (unknown) keeps the gather form
+    mean_bits: float = 0.0
+
+    @property
+    def form(self) -> str:
+        return row_form(self.mean_bits, self.words.shape[0])
 
     @property
     def padded_bits(self) -> int:
@@ -260,6 +274,85 @@ def score_geometry(n_pad: int, b: int, num_words: int) -> ScoreGeometry:
     return ScoreGeometry(grid=(-(-pairs // CTA_WARPS), tiles))
 
 
+# -- the plane form of kernels #2 and #3 (csrc/planes.cuh) -------------------
+# Rows with at least this many set bits on average take the plane form:
+# the narrowest width of chip_smoke.py phase 9's crossover table (262,144
+# rows, B=32, on an H100) at which the plane form of both #2 and #3 beat
+# the gather form (PERF.md §6)
+PLANE_MIN_BITS = 192
+# ... in a matrix of at least this many padded rows: a CTA runs its rows'
+# planes in series, so a grid that leaves most SMs idle loses to the
+# gather form's warps. The narrowest row count of the same table's rows
+# sweep (768 ids a row) at which the plane form of both #2 and #3 beat
+# the gather form; at 4,096 rows #2's gather form is faster (PERF.md §6)
+PLANE_MIN_ROWS = 8192
+PLANE_WARPS = 17  # 4 warpgroups and a producer warp (planes.cuh)
+PLANE_ROWS = 256  # rows of one pass: 64 a warpgroup (kPlaneRows)
+PLANE_FILL_BLOCKS = 256  # 1024-row blocks that fill the card unsplit
+FORMS = ("gather", "plane")
+
+
+def row_form(mean_bits: float, n_pad: int) -> str:
+    """The form of kernels #2 and #3 for ``n_pad`` rows of ``mean_bits``
+    set bits on average: the plane form at or above both
+    ``PLANE_MIN_BITS`` and ``PLANE_MIN_ROWS``."""
+    return ("plane" if mean_bits >= PLANE_MIN_BITS
+            and n_pad >= PLANE_MIN_ROWS else "gather")
+
+
+def _check_form(name: str, form: str) -> None:
+    if form not in FORMS:
+        raise ValueError(f"{name}: unknown form {form!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneGeometry:
+    """How a plane-form kernel launches: CTA x along ``grid[0]`` runs
+    ``passes`` passes of ``PLANE_ROWS`` rows from row ``x * rows_per_cta``
+    (``plane_rows`` in planes.cuh); for #3, the ``split`` CTAs
+    ``x // split`` share a 1024-row block. ``grid[1]`` tiles the queries by
+    32; ``nplanes`` bit planes a row lie below the columns' end."""
+
+    grid: Tuple[int, int]
+    rows_per_cta: int
+    split: int
+    nplanes: int
+    warps: int = PLANE_WARPS
+
+    @property
+    def passes(self) -> int:
+        return self.rows_per_cta // PLANE_ROWS
+
+    @property
+    def total_warps(self) -> int:
+        return self.grid[0] * self.grid[1] * self.warps
+
+
+def plane_geometry(n_pad: int, b: int, num_words: int, num_cols: int,
+                   bucket: int = 0) -> PlaneGeometry:
+    """The launch geometry of the plane form over ``n_pad`` rows of
+    ``num_words`` words (``num_cols`` valid columns) for ``b`` queries:
+    kernel #2 (``bucket`` 0) runs one pass a CTA; kernel #3 gives each
+    1024-row block one CTA once there are ``PLANE_FILL_BLOCKS`` blocks,
+    else splits it over 2 or 4 CTAs so that small indexes fill the card."""
+    tiles = _query_tiles("plane_geometry", b, num_words)
+    nplanes = -(-min(max(num_cols, 0), num_words * 32) // LANES)
+    nplanes += nplanes % 2  # the kernels run planes in pairs
+    if not bucket:
+        return PlaneGeometry(grid=(-(-n_pad // PLANE_ROWS), tiles),
+                             rows_per_cta=PLANE_ROWS, split=1,
+                             nplanes=nplanes)
+    kb = _check_fold("plane_geometry", n_pad, bucket)
+    if kb > ROW_BLOCK // BUCKET:
+        raise ValueError(f"plane_geometry: bucket {bucket} < {BUCKET}")
+    blocks = n_pad // ROW_BLOCK
+    split = (1 if blocks >= PLANE_FILL_BLOCKS
+             else 2 if 2 * blocks >= PLANE_FILL_BLOCKS else 4)
+    return PlaneGeometry(grid=(blocks * split, tiles),
+                         rows_per_cta=ROW_BLOCK // split, split=split,
+                         nplanes=nplanes)
+
+
 def _check_rows(name: str, words: torch.Tensor, qp: torch.Tensor) -> None:
     """Kernels #2-#4 read rows in 512-byte chunks of 16-byte loads, and
     the query operand 4 bytes at a time."""
@@ -280,20 +373,72 @@ def _fold_keys(keys: torch.Tensor, num_rows: int, bucket: int
         .amax(dim=1).reshape(n_pad // bucket, b)
 
 
-def score_bits(words: torch.Tensor, qT: torch.Tensor) -> torch.Tensor:
-    """Kernel #2 (``csrc/scores.cu``) on CUDA tensors, the plain version
-    on CPU tensors. words [N_pad, W] int32, qT [VP, B] bf16 ->
-    [N_pad, B] f32."""
+@functools.lru_cache(maxsize=16)
+def _plane_steps(nplanes: int, device: torch.device) -> torch.Tensor:
+    """[2 * nplanes, 64] query rows of the plane form's steps, in the
+    order the kernels run them: tile t, half h, plane p below num_cols
+    (rows t * 4096 + p * 128 + 64 h + [0, 64))."""
+    base = [t * TILE_BITS + p * LANES + h * 64
+            for t in range(-(-nplanes // PLANES))
+            for h in range(2)
+            for p in range(min(PLANES, nplanes - PLANES * t))]
+    return (torch.tensor(base, dtype=torch.int64)[:, None]
+            + torch.arange(64)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _plane_scales(nplanes: int, device: torch.device) -> torch.Tensor:
+    """[2 * nplanes, 1, 1] bf16: 2^64 for the steps of even planes, else
+    1 (the fragments of even planes are 2^-63, planes.cuh)."""
+    plane = (_plane_steps(nplanes, device)[:, :1] % TILE_BITS) // LANES
+    return torch.where(plane % 2 == 0, 2.0 ** 64, 1.0).to(
+        torch.bfloat16)[:, :, None]
+
+
+def _plane_operand(qp: torch.Tensor, nplanes: int) -> torch.Tensor:
+    """The plane form's query operand from ``qp`` [VP, b_pad] bf16: the
+    slices of the kernels' ring in step order, [b_pad / 32, 2 * nplanes,
+    4 KB] as bf16 [.., 2048]. A slice holds 64 query rows x 32 queries as
+    wgmma's K-major core matrices (8 queries x 8 rows, 128 B): row 8 kg +
+    kk of query 8 ng + nn at byte (kg * 4 + ng) * 128 + nn * 16 + kk * 2.
+    The slices of even planes are scaled by 2^64 (exact in bf16, for
+    weights below 2^63 in magnitude), to meet their fragments' 2^-63
+    (planes.cuh)."""
+    steps = _plane_steps(nplanes, qp.device)
+    s, b_pad = steps.shape[0], qp.shape[1]
+    x = (qp[steps] * _plane_scales(nplanes, qp.device)).view(
+        s, 8, 8, b_pad // 32, 4, 8)
+    # [s, kg, kk, tile, ng, nn] -> [tile, s, kg, ng, nn, kk]
+    return x.permute(3, 0, 1, 4, 5, 2).contiguous().view(b_pad // 32, s,
+                                                         2048)
+
+
+def score_bits(words: torch.Tensor, qT: torch.Tensor,
+               num_cols: Optional[int] = None, _form: str = "gather"
+               ) -> torch.Tensor:
+    """Kernel #2 on CUDA tensors, the plain version on CPU tensors.
+    words [N_pad, W] int32, qT [VP, B] bf16 -> [N_pad, B] f32. ``_form``
+    picks the gather form (``csrc/scores.cu``) or the plane form
+    (``csrc/scores_plane.cu``), which skips the bit planes at or past
+    ``num_cols`` (qT must weigh those columns zero; None: all)."""
+    _check_form("score_bits", _form)
     if _uses_plain("score_bits", (words, torch.int32),
                    (qT, torch.bfloat16)):
         return score_bits_plain(words, qT)
     _check_queries("score_bits", words, qT)
     n_pad, w = words.shape
     b = qT.shape[1]
-    geom = score_geometry(n_pad, b, w)
     qp = _pad_queries(qT)
     _check_rows("score_bits", words, qp)
     out = torch.empty((n_pad, b), dtype=torch.float32, device=words.device)
+    if _form == "plane":
+        g = plane_geometry(n_pad, b, w, w * 32 if num_cols is None
+                           else num_cols)
+        qi = _plane_operand(qp, g.nplanes)
+        return _launch("scores_plane", out, words.data_ptr(), qi.data_ptr(),
+                       out.data_ptr(), n_pad, w, g.nplanes, b, qp.shape[1],
+                       g.grid[0])
+    geom = score_geometry(n_pad, b, w)
     return _launch("scores", out, words.data_ptr(), qp.data_ptr(),
                    out.data_ptr(), n_pad, w, b, qp.shape[1], *geom.c_args())
 
@@ -319,18 +464,35 @@ def splice_keys(scores: torch.Tensor, num_rows: int, bucket: int
 
 
 def bucket_keys(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
-                bucket: int = BUCKET) -> torch.Tensor:
-    """Kernel #3 (``csrc/bucketed.cu``) on CUDA tensors, the plain version
-    on CPU tensors. -> keys [N_pad / bucket, B] int32."""
+                bucket: int = BUCKET, num_cols: Optional[int] = None,
+                _form: str = "gather") -> torch.Tensor:
+    """Kernel #3 on CUDA tensors, the plain version on CPU tensors. ->
+    keys [N_pad / bucket, B] int32. ``_form`` picks the gather form
+    (``csrc/bucketed.cu``) or the plane form (``csrc/bucketed_plane.cu``,
+    ``num_cols`` as for ``score_bits``)."""
+    _check_form("bucket_keys", _form)
     if _uses_plain("bucket_keys", (words, torch.int32),
                    (qT, torch.bfloat16)):
         return bucket_keys_plain(words, qT, num_rows, bucket)
     _check_queries("bucket_keys", words, qT)
     n_pad, w = words.shape
     b = qT.shape[1]
-    geom = fold_geometry(n_pad, bucket, b, w)
     qp = _pad_queries(qT)
     _check_rows("bucket_keys", words, qp)
+    if _form == "plane":
+        g = plane_geometry(n_pad, b, w, w * 32 if num_cols is None
+                           else num_cols, bucket)
+        qi = _plane_operand(qp, g.nplanes)
+        shape = (n_pad // bucket, b)
+        keys = (torch.empty(shape, dtype=torch.int32, device=words.device)
+                if g.split == 1 else
+                torch.full(shape, INT32_MIN, dtype=torch.int32,
+                           device=words.device))
+        return _launch("bucketed_plane", keys, words.data_ptr(),
+                       qi.data_ptr(), keys.data_ptr(), num_rows, n_pad, w,
+                       g.nplanes, b, qp.shape[1], ROW_BLOCK // bucket,
+                       g.split, g.grid[0])
+    geom = fold_geometry(n_pad, bucket, b, w)
     keys = torch.empty((n_pad // bucket, b), dtype=torch.int32,
                        device=words.device)
     return _launch("bucketed", keys, words.data_ptr(), qp.data_ptr(),
@@ -395,13 +557,26 @@ def pack_ell_device(ell) -> BitMatrix:
     words = pack_bits(ell.cols.contiguous(), ell.nnz.contiguous(),
                       ell.num_cols)
     return BitMatrix(words=words, num_rows=ell.cols.shape[0],
-                     num_cols=ell.num_cols)
+                     num_cols=ell.num_cols, mean_bits=ell_mean_bits(ell))
+
+
+def ell_mean_bits(ell) -> float:
+    """Mean set bits a row of a binary ELL (its ``nnz`` within
+    ``nnz_pad``): the width that picks the form of kernels #2 and #3."""
+    n, nnz_pad = ell.cols.shape
+    return float(ell.nnz.clamp(0, nnz_pad).sum()) / n if n else 0.0
 
 
 # The JAX package's pack_ell also packs on the host (C++) and falls back
 # there on a device failure; the port packs where the ELL lives and lets
 # any failure surface.
 pack_ell = pack_ell_device
+
+
+def pack_dense(dense, device="cuda") -> BitMatrix:
+    """Pack a dense 0/1 [N, V] host array (tests / small corpora), on
+    ``device``."""
+    return pack_ell(ELLMatrix.from_dense(dense, device=device))
 
 
 def _prepare_bf16(q: torch.Tensor, padded_bits: int) -> torch.Tensor:
@@ -418,7 +593,8 @@ def prepare_queries(q: torch.Tensor, bitmat: BitMatrix) -> torch.Tensor:
 
 def bitpack_scores(q: torch.Tensor, bitmat: BitMatrix) -> torch.Tensor:
     """scores [B, num_rows] = q @ bits.T (kernel #2)."""
-    scores = score_bits(bitmat.words, prepare_queries(q, bitmat))
+    scores = score_bits(bitmat.words, prepare_queries(q, bitmat),
+                        bitmat.num_cols, _form=bitmat.form)
     return scores[: bitmat.num_rows].T
 
 
@@ -426,7 +602,8 @@ def _bucketed_keys(q: torch.Tensor, bitmat: BitMatrix,
                    bucket: int = BUCKET) -> torch.Tensor:
     """[N_pad / bucket, B] int32 candidate keys (kernel #3)."""
     return bucket_keys(bitmat.words, prepare_queries(q, bitmat),
-                       bitmat.num_rows, bucket)
+                       bitmat.num_rows, bucket, bitmat.num_cols,
+                       _form=bitmat.form)
 
 
 def _int8_bucketed_keys(q8T: torch.Tensor, bitmat: BitMatrix,

@@ -22,7 +22,9 @@ _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          "_build")
 SOURCES = {"pack": "pack.cu", "scores": "scores.cu",
-           "bucketed": "bucketed.cu", "int8_bucketed": "int8_bucketed.cu"}
+           "bucketed": "bucketed.cu", "int8_bucketed": "int8_bucketed.cu",
+           "scores_plane": "scores_plane.cu",
+           "bucketed_plane": "bucketed_plane.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -42,6 +44,14 @@ _SIGNATURES = {
     "bucketed": ("vs_bucketed_keys", [_P, _P, _P, _L] + [_I] * 5 + [_P]),
     "int8_bucketed": ("vs_int8_bucketed_keys",
                       [_P, _P, _P, _L] + [_I] * 5 + [_P]),
+    # (words, qI, out, n_pad, num_words, nplanes, b, b_pad, grid_x),
+    # nplanes and grid_x from bitpack.plane_geometry
+    "scores_plane": ("vs_bitpack_scores_plane",
+                     [_P, _P, _P, _L] + [_I] * 5 + [_P]),
+    # (words, qI, keys, num_rows, n_pad, num_words, nplanes, b, b_pad, kb,
+    # split, grid_x)
+    "bucketed_plane": ("vs_bucketed_keys_plane",
+                       [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
 }
 
 
@@ -121,8 +131,8 @@ def kernel_fn(name: str):
 
 
 def occupancy(name: str) -> int:
-    """CTAs of kernel ``name`` ("scores", "bucketed" or "int8_bucketed")
-    that one SM of the current device holds at once, as the CUDA runtime
+    """CTAs of kernel ``name`` (any of ``SOURCES`` but "pack") that one
+    SM of the current device holds at once, as the CUDA runtime
     works them out from the kernel's registers and shared memory."""
     kernel_fn(name)  # builds and loads the library
     fn = getattr(_libs[name], _SIGNATURES[name][0] + "_occupancy")

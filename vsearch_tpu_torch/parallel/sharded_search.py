@@ -146,7 +146,8 @@ def shard_bitmat(mesh: Mesh, bitmat, axis_name: str = "dp") -> Shards:
         mesh, axis_name, n_pad, per,
         lambda a, b, d, v: BitMatrix(
             words=_rows_on(words, a, b, per, d, v), num_rows=per,
-            num_cols=bitmat.num_cols), words.device)
+            num_cols=bitmat.num_cols, mean_bits=bitmat.mean_bits),
+        words.device)
     return Shards(parts, per, bitmat.num_rows, axis_name)
 
 
@@ -164,13 +165,16 @@ def pack_shards(mesh: Mesh, ell: ELLMatrix, axis_name: str = "dp"
     shard by shard on each shard's device (kernel #1 once a shard): the
     whole packed matrix is never held in one place, and each shard's bits
     equal the same rows of the whole one (the pack is row by row)."""
-    from ..ops.bitpack import BitMatrix, pack_ell
+    from ..ops.bitpack import BitMatrix, ell_mean_bits, pack_ell
 
     per = _bitmat_rows_per(ell.shape[0], mesh.shape[axis_name])
     cells = shard_ell(mesh, ell, axis_name, rows_per=per)
+    # the whole index's width: each shard takes its form at its own rows
+    width = ell_mean_bits(ell)
     parts = [None if c is None else
              BitMatrix(words=pack_ell(c).words, num_rows=per,
-                       num_cols=ell.num_cols) for c in cells.parts]
+                       num_cols=ell.num_cols, mean_bits=width)
+             for c in cells.parts]
     return Shards(parts, per, ell.shape[0], axis_name)
 
 
