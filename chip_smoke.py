@@ -134,7 +134,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      ``TP_GRAD_SUM_RTOL``, with step ms, card peak and the widest slice's logits bytes at both
      widths; then one step at tp=2 as rank 0 of a one-rank NCCL group, in
      a process of its own, held to the tp=1 run's first step the same
-     way.
+     way;
+ 15. the repo's own tools on the card (``vsearch_tpu_torch.examples``):
+     (a) the quick start, tiny (its output checked for shape and
+     finiteness), then from the tiny model's checkpoint and the phase-4
+     retriever's BERT-base checkpoint computed in f32, each held against
+     the same ``main`` on the CPU (alpha and beta ids and ``explain``'s
+     top 5 tokens equal, scores within ``QUICK_RTOL``), then the
+     BERT-base checkpoint as saved (bf16) on the card, its gap to the f32
+     run printed; (b) the three wiki21m scripts through
+     ``bash`` over phase 10's ``--served-rows`` passages and that
+     checkpoint, ``beta_search.sh``'s result file held against the
+     ``beta_search`` CLI's in this process (the same ids, scores within
+     ``SERVED_RTOL``), any script exiting non-zero failing the phase; (c)
+     the convergence demo at 4 layers of 256 over the 30,522-id
+     vocabulary, ``--demo-topics`` (128) topics for ``--demo-epochs`` (90)
+     epochs at B=32 (360 steps): top-1 before <= 0.2 and after >= 0.9 by
+     alpha and by beta search with rerank (gated at the full size only),
+     with steps/s, train seconds and card peak. Launch counts are zeroed
+     before (a) and read after (c); kernels #1 and #2 must have run.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -226,6 +244,24 @@ TP_RTOL = 1e-4
 # logged: svdr_nq's warmup makes the first lr 0, so they are the start's
 TP_NORM_RTOL = 1e-3
 TP_GRAD_SUM_RTOL = 1e-1
+# phase 15: the quick start from an f32 checkpoint on the card against the
+# CPU (phase 7's tolerance for an f32 retriever's beta search)
+QUICK_RTOL = 1e-4
+# phase 15 (a): the BERT-base checkpoint as saved (bf16) against its f32
+# run on the same device. bf16 moves a few of each text's 768 top-k ids at
+# the boundary, and one id that query and passage both hold moves a score
+# by a few per cent of the largest, so the gap is a few per cent. On the
+# ids both runs match, the scores move by bf16's rounding alone. Read on
+# one checkpoint (the card an NVIDIA H100 80GB HBM3 at 700 W, the CPU its
+# host's), card / CPU: largest change 0.0444 / 0.0421, on the kept ids
+# 5.5e-4 / 6.8e-4, ids kept 0.978 / 0.982; the limits leave 2x, 7x, 0.03
+BF16_GAP = 0.10  # largest score change, share of the largest score
+BF16_KEPT = 5e-3  # the change on the matched ids both runs keep
+BF16_OVERLAP = 0.95  # least share of a text's top-k ids both runs keep
+# phase 15 (c): the convergence demo's configuration whose TPU run the
+# README records (128 topics at B=32: 4 steps an epoch, 360 steps)
+DEMO_TOPICS = 128
+DEMO_EPOCHS = 90
 
 
 # the launch counter (bitpack.LAUNCHES) of each kernel of the kernels line
@@ -507,7 +543,12 @@ def main() -> int:
     ap.add_argument("--train-steps", type=int, default=32)
     ap.add_argument("--mining-steps", type=int, default=6)
     ap.add_argument("--dpr-steps", type=int, default=4)
+    ap.add_argument("--demo-topics", type=int, default=DEMO_TOPICS)
+    ap.add_argument("--demo-epochs", type=int, default=DEMO_EPOCHS)
     args = ap.parse_args()
+    # the run needs no network: a tokenizer named by a hub id must fail
+    # here, not be fetched (read before ``transformers`` is imported)
+    os.environ["HF_HUB_OFFLINE"] = "1"
 
     import torch
 
@@ -884,6 +925,14 @@ def main() -> int:
 
     # -- phase 14: training on the mesh's tp axis (virtual shards) ----------
     phase_tp(torch, dev, args, retriever, tok, words, texts, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 15: the repo's own tools on the card -------------------------
+    launch_15 = phase_tools(torch, bp, dev, args, retriever, queries,
+                            served_texts)
+    for e in kernels:  # the launches of phase 15's paths in this process
+        e["launches"] += launch_15[COUNTERS[e["name"]]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -3642,6 +3691,394 @@ def phase_tp(torch, dev, args, retriever, tok, words, texts, smi: str
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 15 -----------------------------------------------------------------
+def captured(fn, *a):
+    """``fn(*a)`` with its standard output logged line by line under a
+    prefix (so this script's own last two lines stay last); returns what
+    ``fn`` returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a)
+    for line in buf.getvalue().splitlines():
+        log(f"    | {line}")
+    return out
+
+
+def same_quick_start(got: dict, want: dict, rtol: float) -> str:
+    """'' when two quick start runs agree (alpha and beta ids equal,
+    scores within ``rtol`` of the largest, ``explain``'s top 5 tokens
+    equal), else what differs."""
+    for key in ("alpha", "beta"):
+        if not np.array_equal(got[key].ids, want[key].ids):
+            return f"{key} ids {got[key].ids} != {want[key].ids}"
+    for key, a, b in (("scores", got["scores"], want["scores"]),
+                      ("alpha scores", got["alpha"].scores,
+                       want["alpha"].scores),
+                      ("beta scores", got["beta"].scores,
+                       want["beta"].scores),
+                      ("explain weights", list(got["explain"].values()),
+                       list(want["explain"].values()))):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        gap = float(np.abs(a - b).max(initial=0.0)
+                    / max(np.abs(b).max(initial=0.0), 1e-6))
+        if gap > rtol:
+            return f"{key} differ by {gap:.3g} of the largest (> {rtol})"
+    if list(got["explain"]) != list(want["explain"]):
+        return (f"explain top 5 {list(got['explain'])} != "
+                f"{list(want['explain'])}")
+    return ""
+
+
+def f32_checkpoint(src: str, dst: str) -> str:
+    """``dst``: the checkpoint ``src`` with each encoder's compute dtype
+    set to f32 (its weights, stored in f32, and vocab linked)."""
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        if name != "config.json":
+            os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    with open(os.path.join(src, "config.json")) as f:
+        cfg = json.load(f)
+    for side in ("encoder_q", "encoder_p"):
+        cfg[side]["dtype"] = "float32"
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return dst
+
+
+def run_script(name: str, env: dict) -> float:
+    """One of the port's wiki21m scripts through ``bash`` from the repo
+    root; fails the phase on a non-zero exit. Returns its seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        ["bash", os.path.join(root, "vsearch_tpu_torch", "examples",
+                              "svdr_wiki21m", name)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    require(out.returncode == 0, f"{name} exited {out.returncode}: "
+            f"{out.stderr[-3000:]}")
+    for line in out.stdout.strip().splitlines()[-2:]:
+        log(f"    | {line}")
+    return secs
+
+
+def bf16_gap(got: dict, want: dict) -> tuple:
+    """A quick start run in bf16 (``got``) against the f32 run of the same
+    checkpoint on the same device: (the largest score change, the change
+    on the ids that both runs match between the query and a passage, each
+    a share of the largest f32 score; the least share of a text's nonzero
+    ids, the query's or a passage's, that both runs keep)."""
+    gq, wq = got["q_emb"][0], want["q_emb"][0]
+    gp, wp = got["p_emb"], want["p_emb"]
+    top = float(np.abs(want["scores"]).max())
+    gap = float(np.abs(got["scores"] - want["scores"]).max()) / top
+    kept = 0.0
+    for j in range(len(wp)):
+        both = (gq != 0) & (gp[j] != 0) & (wq != 0) & (wp[j] != 0)
+        moved = (gq[both].astype(np.float64) * gp[j][both]).sum() \
+            - (wq[both].astype(np.float64) * wp[j][both]).sum()
+        kept = max(kept, abs(float(moved)) / top)
+    overlap = min(float(((g != 0) & (w != 0)).sum() / max((w != 0).sum(), 1))
+                  for g, w in [(gq, wq)] + list(zip(gp, wp)))
+    return gap, kept, overlap
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(bp, where: dict):
+    """Kernels #1 (``pack_bits``) and #2 (``score_bits``) as the paths run
+    inside call them on the card: the inputs and output of the first call
+    at each shape, under ``where["part"]`` at that time, and the number of
+    calls of each (``"pack"``, and ``"scores"`` or ``"scores_plane"`` by
+    form), to hold against the plain versions and the launch counts once
+    the paths are done."""
+    pack, score = bp.pack_bits, bp.score_bits
+    rec = {"first": {}, "calls": dict(pack=0, scores=0, scores_plane=0)}
+
+    def pack_rec(cols, nnz, num_cols):
+        out = pack(cols, nnz, num_cols)
+        if out.is_cuda:
+            rec["calls"]["pack"] += 1
+            rec["first"].setdefault(("pack", tuple(cols.shape), num_cols),
+                                    (where["part"], (cols, nnz, num_cols),
+                                     out))
+        return out
+
+    def score_rec(words, qT, num_cols=None, _form="gather"):
+        out = score(words, qT, num_cols, _form=_form)
+        if out.is_cuda:
+            rec["calls"]["scores" if _form == "gather"
+                         else "scores_plane"] += 1
+            rec["first"].setdefault(
+                ("scores", tuple(words.shape), tuple(qT.shape), _form),
+                (where["part"], (words, qT, num_cols, _form), out))
+        return out
+
+    bp.pack_bits, bp.score_bits = pack_rec, score_rec
+    try:
+        yield rec
+    finally:
+        bp.pack_bits, bp.score_bits = pack, score
+
+
+def hold_recorded_calls(torch, bp, dev, rec: dict, launches: dict) -> None:
+    """Each shape at which phase 15's paths called #1 and #2 on the card,
+    held against the plain versions on the same inputs: #1's words bit for
+    bit; #2 on the path's own query operand within 1e-5 of the largest
+    score (phase 3's tolerance), and bit for bit on a dyadic operand of
+    the same shape. Every launch of the two must have been recorded."""
+    for name, n in rec["calls"].items():
+        require(n == launches[name], f"phase 15: {n} {name} calls recorded "
+                f"against {launches[name]} launches")
+    rng = np.random.default_rng(15)
+    for key, (part, args, out) in rec["first"].items():
+        if key[0] == "pack":
+            cols, nnz, v = args
+            require(torch.equal(out, bp.pack_bits_plain(cols, nnz, v)),
+                    f"phase 15 {part}: #1 != plain at {key}")
+            log(f"  #1 as {part} called it, {cols.shape[0]} rows x "
+                f"{cols.shape[1]} ids, V' {v} -> {list(out.shape)}: "
+                f"bit-identical to plain")
+            continue
+        words, qT, v, form = args
+        want = bp.score_bits_plain(words, qT)
+        err = float((out - want).abs().max())
+        require(err <= 1e-5 * max(float(want.abs().max()), 1.0),
+                f"phase 15 {part}: #2 differs from plain by {err} at {key}")
+        vp, b = qT.shape
+        dyT = dyadic_operand(torch, rng, dev, vp, v or vp, b)
+        require(torch.equal(bp.score_bits(words, dyT, v, _form=form),
+                            bp.score_bits_plain(words, dyT)),
+                f"phase 15 {part}: #2 != plain (dyadic) at {key}")
+        log(f"  #2 ({form} form) as {part} called it, {list(words.shape)} "
+            f"words x [{vp}, {b}] queries: bit-identical to plain (dyadic), "
+            f"max_abs_err {err} (the path's queries)")
+
+
+@contextlib.contextmanager
+def timed_info_cards(torch, dev, out: list):
+    """Every ``RetrieverTrainer`` info card made inside records its
+    milliseconds into ``out`` (synchronised before and after)."""
+    from vsearch_tpu_torch.train import trainer as tr
+
+    orig = tr.RetrieverTrainer._log_info_card
+
+    def timed(self, host_batch):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        orig(self, host_batch)
+        sync(torch, dev)
+        out.append((time.perf_counter() - t0) * 1e3)
+
+    tr.RetrieverTrainer._log_info_card = timed
+    try:
+        yield out
+    finally:
+        tr.RetrieverTrainer._log_info_card = orig
+
+
+def tools_quick_start(torch, dev, retriever, work: str) -> str:
+    """Phase 15 (a): the quick start tiny, then from the tiny model's
+    checkpoint and the phase-4 BERT-base retriever's computed in f32, each
+    held against the same ``main`` on the CPU, then that checkpoint as
+    saved (bf16) against its f32 run on each device. Returns the
+    BERT-base checkpoint's path."""
+    from vsearch_tpu_torch.examples import quick_start
+
+    log("phase 15 (the repo's tools on the card): (a) quick start")
+    dv = ["--device", str(dev)]
+    t0 = time.perf_counter()
+    got = captured(quick_start.main, dv)
+    n = len(quick_start.PASSAGES)
+    require(got["scores"].shape == (1, n)
+            and np.isfinite(got["scores"]).all()
+            and all(sorted(r.ids[0].tolist()) == list(range(n))
+                    for r in (got["alpha"], got["beta"])),
+            f"quick start (tiny, no checkpoint): {got}")
+    log(f"  tiny random model on the card ({time.perf_counter() - t0:.2f}"
+        f" s): finite scores, alpha and beta rank all {n} passages")
+    # the same main from checkpoints on the card and on the CPU, in f32:
+    # the tiny model's (its seed draws other weights on each device, so it
+    # is saved from the card) and the phase-4 BERT-base retriever's weights
+    # with its compute dtype set to f32 (bf16 moves top-k ids, below)
+    ckpt, tiny = f"{work}/ckpt", f"{work}/tiny"
+    retriever.save_pretrained(ckpt)
+    f32 = f32_checkpoint(ckpt, f"{work}/ckpt_f32")
+    quick_start.make_tiny_retriever(dev).save_pretrained(tiny)
+    for label, path in (("tiny checkpoint (f32)", tiny),
+                        ("phase 10's BERT-base checkpoint in f32", f32)):
+        argv = ["--checkpoint", path]
+        t0 = time.perf_counter()
+        got = captured(quick_start.main, argv + dv)
+        t1 = time.perf_counter()
+        want = captured(quick_start.main, argv + ["--device", "cpu"])
+        t2 = time.perf_counter()
+        diff = same_quick_start(got, want, QUICK_RTOL)
+        log(f"  {label}: card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; "
+            f"alpha {got['alpha'].ids[0].tolist()}, beta "
+            f"{got['beta'].ids[0].tolist()}, explain top 5 "
+            f"{list(got['explain'])}; card vs CPU: "
+            f"{diff or f'equal ids and tokens, scores within {QUICK_RTOL}'}")
+        require(not diff, f"quick start ({label}), card vs CPU: {diff}")
+        gc.collect()
+    # the checkpoint as saved, bf16, against its f32 run on each device:
+    # the CPU's reading is the yardstick of the card's, which is gated
+    for where, f32_run in (("card", got), ("CPU", want)):
+        t0 = time.perf_counter()
+        bf16 = captured(quick_start.main, [
+            "--checkpoint", ckpt, "--device",
+            str(dev) if where == "card" else "cpu"])
+        gap, kept, overlap = bf16_gap(bf16, f32_run)
+        log(f"  phase 10's BERT-base checkpoint as saved (bf16) on the "
+            f"{where} ({time.perf_counter() - t0:.2f} s): alpha "
+            f"{bf16['alpha'].ids[0].tolist()}, beta "
+            f"{bf16['beta'].ids[0].tolist()}; against the {where}'s f32 "
+            f"run: largest score change {gap!r} of the largest score, on "
+            f"the matched ids both runs keep {kept!r}; top-k ids kept, "
+            f"least of the four texts: {overlap!r}")
+        require(np.isfinite(bf16["scores"]).all(),
+                f"quick start (bf16 checkpoint, {where}): non-finite scores")
+        if where == "card":
+            require(gap <= BF16_GAP and kept <= BF16_KEPT
+                    and overlap >= BF16_OVERLAP,
+                    f"quick start in bf16 on the card against f32: change "
+                    f"{gap} (limit {BF16_GAP}), on kept ids {kept} (limit "
+                    f"{BF16_KEPT}), ids kept {overlap} (at least "
+                    f"{BF16_OVERLAP})")
+        gc.collect()
+    return ckpt
+
+
+def tools_scripts(torch, dev, ckpt: str, queries, texts, work: str) -> None:
+    """Phase 15 (b): the three wiki21m scripts through ``bash`` over
+    ``texts`` and ``ckpt``, ``beta_search.sh``'s results held against the
+    ``beta_search`` CLI run in this process on the same inputs."""
+    from vsearch_tpu_torch.cli.search import beta_search
+
+    corpus, qfile = f"{work}/corpus.jsonl", f"{work}/queries.jsonl"
+    with open(corpus, "w") as f:
+        f.writelines(json.dumps({"text": t}) + "\n" for t in texts)
+    qs = queries[:min(64, len(queries))]
+    with open(qfile, "w") as f:
+        f.writelines(json.dumps({"question": q}) + "\n" for q in qs)
+    with open(f"{work}/qa.csv", "w") as f:
+        f.writelines(f"{q}\t{[q.split()[-1]]!r}\n" for q in qs)
+    env = dict(os.environ, DEVICE=str(dev), PYTHON=sys.executable,
+               HF_HUB_OFFLINE="1", VSEARCH_TPU_VOCAB=f"{ckpt}/vocab.txt",
+               CKPT=ckpt, TEXT=corpus, INDEX=f"{work}/bot.npz",
+               QUERY=qfile, RESULT=f"{work}/beta.json",
+               QA=f"{work}/qa.csv")
+    secs = {"build_binary_token_index.sh": run_script(
+        "build_binary_token_index.sh", dict(env, SAVE=f"{work}/bot.npz"))}
+    secs["beta_search.sh"] = run_script(
+        "beta_search.sh", dict(env, SAVE=f"{work}/beta.json"))
+    secs["score_wiki21m.sh"] = run_script("score_wiki21m.sh", env)
+    t0 = time.perf_counter()
+    beta_search.main(["--checkpoint", ckpt, "--query_file", qfile,
+                      "--text_file", corpus, "--index_file",
+                      f"{work}/bot.npz", "--save_file", f"{work}/ref.json",
+                      "--num_rerank", "100", "--device", str(dev)])
+    ref_s = time.perf_counter() - t0
+    res = []
+    for name in ("beta", "ref"):
+        with open(f"{work}/{name}.json") as f:
+            rows = json.load(f)
+        res.append((np.asarray([r["ids"] for r in rows]),
+                    np.asarray([r["scores"] for r in rows], np.float32)))
+    (ids, scores), (r_ids, r_scores) = res
+    exact = np.array_equal(ids, r_ids) and np.array_equal(scores, r_scores)
+    require(ids.shape == (len(qs), K) and (exact or same_topk(
+        r_ids, r_scores, ids, scores, SERVED_RTOL)),
+        "beta_search.sh results differ from the beta_search CLI's")
+    log(f"  (b) wiki21m scripts over {len(texts)} passages, {len(qs)} "
+        f"queries: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+        + f" (each a process of its own); beta_search.sh == the "
+        f"beta_search CLI in this process ({ref_s:.2f} s): "
+        f"{'bit-identical' if exact else f'rtol {SERVED_RTOL}'}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tools_demo(torch, dev, args, work: str) -> None:
+    """Phase 15 (c): the convergence demo, ``--demo-topics`` topics for
+    ``--demo-epochs`` epochs at 4 layers of 256, its top-1 gated at the
+    full run; its train time split into the steps, the info cards and the
+    rest, each synchronised."""
+    from vsearch_tpu_torch.examples import train_demo
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    full = (args.demo_topics, args.demo_epochs) == (DEMO_TOPICS, DEMO_EPOCHS)
+    steps, cards = [], []
+    with recorded_steps(torch, dev, steps), \
+            timed_info_cards(torch, dev, cards):
+        demo = captured(train_demo.main, [
+            "--num-topics", str(args.demo_topics), "--epochs",
+            str(args.demo_epochs), "--layers", "4", "--hidden", "256",
+            "--batch-size", str(B), "--out", f"{work}/demo", "--device",
+            str(dev)])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"  (c) convergence demo ({demo['model']}, "
+        f"{demo['num_topics']} topics, {demo['steps']} steps at B={B}): "
+        f"top-1 {demo['top1_before']} before, {demo['top1_after']} "
+        f"after by alpha search, {demo['top1_beta_after']} by beta "
+        f"search with rerank; {demo['steps_per_s']} steps/s, train "
+        f"{demo['train_seconds']} s, card peak {peak:.3f} GiB "
+        f"({demo['device']})")
+    ms = [s[0] for s in steps]
+    step_s, card_s = sum(ms) / 1e3, sum(cards) / 1e3
+    log(f"    train time: {len(ms)} steps {step_s!r} s (median "
+        f"{float(np.median(ms))!r} ms, first {ms[0]!r} ms), {len(cards)} "
+        f"info cards {card_s!r} s (median {float(np.median(cards))!r} ms), "
+        f"the rest {demo['train_seconds'] - step_s - card_s!r} s "
+        f"(batches, epoch ends, saves); each step and card synchronised")
+    if full:
+        require(demo["top1_before"] <= 0.2,
+                f"demo top-1 before {demo['top1_before']} > 0.2")
+        require(demo["top1_after"] >= 0.9 and demo["top1_beta_after"] >= 0.9,
+                f"demo top-1 after {demo['top1_after']} (alpha), "
+                f"{demo['top1_beta_after']} (beta): below 0.9")
+    else:
+        log("    (cut by --demo-topics/--demo-epochs: top-1 not gated)")
+
+
+def phase_tools(torch, bp, dev, args, retriever, queries, texts) -> dict:
+    """Phase 15: the repo's own tools on the card, through the port's
+    entry points: (a) the quick start (``tools_quick_start``), (b) the
+    wiki21m scripts over ``texts`` (``tools_scripts``), (c) the
+    convergence demo (``tools_demo``). Launch counts are zeroed before (a)
+    and read after (c); the script children's launches are their own.
+    Then each shape at which (a)-(c) called kernels #1 and #2 in this
+    process is held against the plain versions on the same inputs.
+    Returns the counts."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    torch.cuda.synchronize()
+    bp.reset_launch_counts()
+    where = {"part": "(a)"}
+    try:
+        with recorded_kernel_calls(bp, where) as rec:
+            ckpt = tools_quick_start(torch, dev, retriever, work)
+            where["part"] = "(b)"
+            tools_scripts(torch, dev, ckpt, queries, texts, work)
+            where["part"] = "(c)"
+            tools_demo(torch, dev, args, work)
+            torch.cuda.synchronize()
+            launches = dict(bp.LAUNCHES)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  launches of phase 15 (this process): {launches}")
+    require(launches["pack"] >= 1 and launches["scores"] >= 1,
+            f"phase 15 skipped kernels #1 or #2: {launches}")
+    hold_recorded_calls(torch, bp, dev, rec, launches)
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def free_port() -> int:

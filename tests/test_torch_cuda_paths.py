@@ -48,8 +48,9 @@ def test_dense_search_on_the_card_equals_the_cpu(dev, chunk):
     q = torch.from_numpy((rng.integers(-16, 17, size=(9, 64)) / 8.0)
                          .astype(np.float32)).to(torch.bfloat16)
     assert so.gemm_form(q.to(dev), vecs.to(dev)) == so.GEMM_BF16_F32
-    got = so.dense_topk_search(q.to(dev), vecs.to(dev), 100, chunk)
-    want = so.dense_topk_search(q, vecs, 100, chunk)
+    got = so.dense_topk_search(q.to(dev), vecs.to(dev), 100,
+                               chunk_rows=chunk)
+    want = so.dense_topk_search(q, vecs, 100, chunk_rows=chunk)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
 
@@ -59,7 +60,7 @@ def test_dense_search_random_against_float64(dev):
     vecs = torch.randn((300_000, 768), generator=g, device=dev) \
         .to(torch.bfloat16)
     q = torch.randn((32, 768), generator=g, device=dev).to(torch.bfloat16)
-    ids, scores = so.dense_topk_search(q, vecs, 100, 65_536)
+    ids, scores = so.dense_topk_search(q, vecs, 100, chunk_rows=65_536)
     ref = q.double() @ vecs.double().T
     want_s, want_i = torch.topk(ref, 100, dim=1)
     top = want_s[:, :1].abs()

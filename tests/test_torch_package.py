@@ -53,7 +53,10 @@ def test_import_with_jax_blocked():
         " 'vsearch_tpu_torch.parallel.collectives',\n"
         " 'vsearch_tpu_torch.parallel.sharded_search',\n"
         " 'vsearch_tpu_torch.index.index_utils',\n"
-        " 'vsearch_tpu_torch.utils.vis'}\n"
+        " 'vsearch_tpu_torch.utils.vis',\n"
+        " 'vsearch_tpu_torch.examples.synthetic_vocab',\n"
+        " 'vsearch_tpu_torch.examples.quick_start',\n"
+        " 'vsearch_tpu_torch.examples.train_demo'}\n"
         "assert need <= names, need - names\n"
         "from vsearch_tpu_torch.retriever import Retriever\n"
         "assert Retriever.retireve_negatives is Retriever.retrieve_negatives\n"
@@ -164,10 +167,12 @@ def checkpoint(tmp_path_factory):
     "from_pretrained", "serve_cli", "binary_token_index", "sparse_index",
     "dense_index", "search_sparse_index", "search_dense_index",
     "beta_search", "convert_checkpoint", "trace", "device_memory_stats",
-    "eval_beir", "dpr", "crossmodal_text", "crossmodal_image", "train"])
+    "eval_beir", "dpr", "crossmodal_text", "crossmodal_image", "train",
+    "quick_start", "train_demo", "build_bot_ell"])
 def test_new_entry_points_raise_without_cuda(checkpoint, entry):
     """The checkpoint loader, every CLI of ``cli/`` (no ``--device``), the
-    encoders and the device readers of ``utils/`` raise without CUDA."""
+    encoders, the device readers of ``utils/``, the tools of
+    ``examples/`` and the bag-of-token build raise without CUDA."""
     import importlib
 
     import torch
@@ -228,6 +233,16 @@ def test_new_entry_points_raise_without_cuda(checkpoint, entry):
             from vsearch_tpu_torch.utils.profiling import trace
             with trace(str(d / "trace")):
                 pass
+        elif entry == "quick_start":
+            from vsearch_tpu_torch.examples import quick_start
+            quick_start.main([])
+        elif entry == "train_demo":
+            from vsearch_tpu_torch.examples import train_demo
+            train_demo.main(["--num-topics", "4"])
+        elif entry == "build_bot_ell":
+            from tests.helpers import make_tokenizer
+            from vsearch_tpu_torch.index.bot_build import build_bot_ell
+            build_bot_ell(make_tokenizer(), ["green tea"], 16, 5)
         elif entry == "device_memory_stats":
             from vsearch_tpu_torch.utils.profiling import \
                 device_memory_stats

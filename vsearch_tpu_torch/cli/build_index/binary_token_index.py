@@ -48,8 +48,9 @@ def main(argv=None):
     tokenizer = get_tokenizer(args.tokenizer)
     t0 = time.perf_counter()
     ell = build_bot_ell(tokenizer, texts, max_len=args.max_len,
-                        shift=args.num_shift, max_token=args.max_token,
-                        device=args.device)
+                        shift=args.num_shift, batch_size=args.batch_size,
+                        max_token=args.max_token,
+                        num_workers=args.num_workers, device=args.device)
     build_s = time.perf_counter() - t0
     logger.info("***** Finish Indexing *****")
     logger.info("***** Time for indexing (exclude i/o): %.0f s *****",

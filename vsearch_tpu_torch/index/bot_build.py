@@ -55,11 +55,22 @@ def _encode_chunk(tokenizer, texts: Sequence[str], max_len: int,
 
 
 def build_bot_ell(tokenizer, texts: Sequence[str], max_len: int = 128,
-                  shift: int = 999, max_token: Optional[int] = None,
-                  vocab_size: Optional[int] = None, device="cuda"
-                  ) -> ELLMatrix:
-    """Build a binary bag-of-token ELLMatrix on ``device`` from raw
-    texts."""
+                  shift: int = 999, batch_size: int = 1024,
+                  max_token: Optional[int] = None,
+                  num_workers: Optional[int] = None,
+                  vocab_size: Optional[int] = None,
+                  return_host: bool = False, device="cuda"):
+    """Build a binary bag-of-token ELLMatrix from raw texts, with the JAX
+    package's arguments in its order.
+
+    ``batch_size`` and ``num_workers`` are accepted and unused: the C++
+    tokenizer runs its own threads. ``device`` is a device name or
+    ``torch.device``, or the JAX package's flag: ``True`` the card,
+    ``False`` a host ELL (CPU tensors). ``return_host=True`` returns
+    ``(ell, cols, nnz)`` with the rows as numpy arrays too.
+    """
+    if isinstance(device, bool):
+        device = "cuda" if device else "cpu"
     dev = resolve_device(device)
     vocab_size = vocab_size or tokenizer.vocab_size
     if shift >= vocab_size:
@@ -72,5 +83,8 @@ def build_bot_ell(tokenizer, texts: Sequence[str], max_len: int = 128,
     sentinel = vocab_size - shift  # mask-free scoring padding
     cols, nnz = _encode_chunk(tokenizer, texts, max_len, shift, cap,
                               nnz_pad, sentinel)
-    return ELLMatrix.from_arrays(cols, nnz, None, vocab_size - shift, True,
-                                 dev)
+    ell = ELLMatrix.from_arrays(cols, nnz, None, vocab_size - shift, True,
+                                dev)
+    if return_host:
+        return ell, cols, nnz
+    return ell

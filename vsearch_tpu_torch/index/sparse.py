@@ -326,6 +326,17 @@ class BoTIndex(SparseIndex):
     selection = "auto"
     bucketed_threshold = 131_072
 
+    # host copies (cols, nnz) of the ELL's rows, given to ``set_ell`` by a
+    # caller that holds them: the stream tier reads them in place of a
+    # copy of the ELL from the card
+    _host_cache: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+    def set_ell(self, ell: ELLMatrix, host_cache=None):
+        """The JAX package's ``set_ell(ell, host_cache)``: ``host_cache``
+        is numpy ``(cols, nnz)`` of the same rows, or None."""
+        super().set_ell(ell)
+        self._host_cache = host_cache
+
     def _reset_derived(self):
         """Also drop the packed bits, the block tier's device ELL and the
         streamer."""
@@ -436,10 +447,10 @@ class BoTIndex(SparseIndex):
         from .streamed import StreamedBitpackSearcher
 
         if self._streamer is None:
-            # views of a host ELL, or one copy of a device one (the
-            # compact ELL, never the packed bits)
-            cols = self.ell.cols.cpu().numpy()
-            nnz = self.ell.nnz.cpu().numpy()
+            # the caller's host copies, views of a host ELL, or one copy
+            # of a device one (the compact ELL, never the packed bits)
+            cols, nnz = self._host_cache or (self.ell.cols.cpu().numpy(),
+                                             self.ell.nnz.cpu().numpy())
             sel = self._resolved_selection()
             self._streamer = StreamedBitpackSearcher(
                 cols, nnz, self.ell.num_cols,

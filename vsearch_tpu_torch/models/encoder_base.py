@@ -16,6 +16,7 @@ weights.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -25,6 +26,27 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+
+# ``pipeline_window``'s default in-flight window (the JAX package's)
+PIPELINE_DEPTH = 8
+
+
+def pipeline_window(device_results, fetch, depth: Optional[int] = None):
+    """Drain an iterator of asynchronous device results with a bounded
+    in-flight window: ``fetch(item)`` converts one result to host arrays
+    once ``depth`` later results are queued (the JAX package's helper;
+    the port's own embed loops copy once at the end instead)."""
+    if depth is None:
+        depth = PIPELINE_DEPTH
+    pending: collections.deque = collections.deque()
+    results = []
+    for item in device_results:
+        pending.append(item)
+        if len(pending) > depth:
+            results.append(fetch(pending.popleft()))
+    while pending:
+        results.append(fetch(pending.popleft()))
+    return results
 
 
 def build_module(module_cls, config, init: Callable, seed: int,

@@ -84,6 +84,10 @@ class BitMatrix:
     def padded_bits(self) -> int:
         return self.words.shape[1] * 32
 
+    @property
+    def num_ktiles(self) -> int:
+        return self.padded_bits // TILE_BITS
+
 
 def _uses_plain(name: str, *inputs: Tuple[torch.Tensor, torch.dtype]
                 ) -> bool:
@@ -639,9 +643,15 @@ def _key_gids(keys: torch.Tensor, pos: torch.Tensor, kb: int
 
 
 def bitpack_bucketed_topk(q: torch.Tensor, bitmat: BitMatrix, k: int,
-                          bucket: int = BUCKET
+                          bucket: int = BUCKET, row_block: int = ROW_BLOCK,
+                          interpret: Optional[bool] = None,
+                          approx_final: bool = False,
+                          recall_target: float = 0.97
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ids, scores) [B, k] via the fused bucketed kernel.
+    """(ids, scores) [B, k] via the fused bucketed kernel, with the JAX
+    package's arguments: ``row_block`` and ``interpret`` are accepted and
+    unused (the kernels fold 1024-row blocks), and ``approx_final`` merges
+    exactly, as the JAX package does off the TPU.
 
     Exact up to (a) <= 2^-13 relative score quantization and (b)
     collisions of true top-k rows within one bucket. Falls back to exact
@@ -664,9 +674,13 @@ def _keys_topk(keys: torch.Tensor, k: int, bucket: int
     return _key_gids(keys, pos, ROW_BLOCK // bucket), s
 
 
-def bitpack_topk_search(q: torch.Tensor, bitmat: BitMatrix, k: int
+def bitpack_topk_search(q: torch.Tensor, bitmat: BitMatrix, k: int,
+                        interpret: Optional[bool] = None,
+                        approx: bool = False, recall_target: float = 0.97
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ids, scores) [B, k]: kernel #2 scoring + exact top-k."""
+    """(ids, scores) [B, k]: kernel #2 scoring + exact top-k. ``interpret``
+    is accepted and unused; ``approx`` selects exactly, as the JAX package
+    does off the TPU."""
     s, i = top_k(bitpack_scores(q, bitmat), k)
     return i, s
 

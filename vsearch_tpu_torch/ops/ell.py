@@ -210,8 +210,10 @@ def ell_row_block_scores(q: torch.Tensor, cols: torch.Tensor,
     return torch.einsum("bcj,cj->bc", g, w)
 
 
-def ell_matvec_scores(q: torch.Tensor, mat: ELLMatrix) -> torch.Tensor:
+def ell_matvec_scores(q: torch.Tensor, mat: ELLMatrix,
+                      block_rows: Optional[int] = None) -> torch.Tensor:
     """scores [B, N] = q @ mat.T for dense q [B, V] (f32 gather-reduce).
+    ``block_rows`` is accepted and unused, as in the JAX package.
 
     q is transposed to [V+1, B] with a zero row at index V, rows are
     gathered by column id (sentinel pads hit the zero row), then reduced

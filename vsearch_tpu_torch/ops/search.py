@@ -100,10 +100,14 @@ def dense_chunk_rows(b: int, d: int) -> int:
 
 
 def dense_topk_search(q: torch.Tensor, vectors: torch.Tensor, k: int,
+                      precision=None, approx: bool = False,
+                      recall_target: float = 0.99, *,
                       chunk_rows: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """scores = q @ vectors.T, then top-k. Returns (ids, scores) [B, k],
-    ``k`` clamped to the rows.
+    ``k`` clamped to the rows. The JAX package's ``precision`` is accepted
+    and unused (products are exact f32 here), and ``approx`` selects
+    exactly, as the JAX package does off the TPU.
 
     The rows are scored ``chunk_rows`` at a time (default
     ``dense_chunk_rows``); each chunk's top-k is merged into the running

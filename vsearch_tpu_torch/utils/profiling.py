@@ -16,11 +16,14 @@ logger = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
-def trace(log_dir: str, device="cuda"):
+def trace(log_dir: str, create_perfetto_link: bool = False, *,
+          device="cuda"):
     """Capture a ``torch.profiler`` trace of the enclosed block (host ops,
     and the card's kernels unless ``device="cpu"``) and write it to
     ``log_dir`` as a Chrome trace (``trace.json``, viewable in Perfetto).
-    Yields the profiler, whose ``key_averages()`` give time by kernel."""
+    Yields the profiler, whose ``key_averages()`` give time by kernel.
+    ``create_perfetto_link`` is accepted and unused: the file opens in
+    Perfetto as it is."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
