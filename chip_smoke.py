@@ -152,7 +152,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      epochs at B=32 (360 steps): top-1 before <= 0.2 and after >= 0.9 by
      alpha and by beta search with rerank (gated at the full size only),
      with steps/s, train seconds and card peak. Launch counts are zeroed
-     before (a) and read after (c); kernels #1 and #2 must have run.
+     before (a) and read after (c); kernels #1 and #2 must have run;
+ 16. the repo's probes on the card (``vsearch_tpu_torch/scripts``, the
+     counterparts of ``scripts/probe_*.py``), each ``main`` in this
+     process at the JAX probes' widths (``PROBE_RUNS``; stream stage B and
+     the B=2,048 block sweep cut to 2,097,152 rows, the serve load, whose
+     server is a child, to 2 client counts for 3 s), the plane form's two
+     timing-only variants timed beside it. Launch counts are zeroed before
+     each probe and read after it; every launch must have been recorded at
+     its wrapper (``recorded_kernel_calls``), and after each probe every
+     shape at which it first called a kernel (P1, P2 and P5 of
+     ``ops/probes.py``, #1-#4 in either form) is held against the plain
+     version on the same inputs (``hold_recorded_calls``).
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -264,12 +275,38 @@ DEMO_TOPICS = 128
 DEMO_EPOCHS = 90
 
 
+# phase 16: the port's probes (vsearch_tpu_torch/scripts), each run in
+# this process at the JAX probes' widths (the serve load's server in a
+# child); only stream stage B and the b2048 sweep are cut, to 8 blocks of
+# 262,144 rows, and the serve load to 2 client counts for 3 s each
+PROBE_ROWS = 8 * BLOCK_ROWS
+PROBE_RUNS = (  # (key of the result, probe, arguments)
+    ("bitcast", "probe_bitcast_layout", []),
+    ("pack", "probe_pack", []),
+    ("scorer", "probe_scorer_variants", []),
+    ("int8", "probe_int8_scorer", []),
+    ("parts", "probe_block_parts", []),
+    ("parts_b32", "probe_block_parts", ["--b", "32"]),
+    ("b2048", "probe_block_b2048", ["--rows", str(PROBE_ROWS)]),
+    ("regret", "bitpack_regret_probe", []),
+    ("alpha", "probe_alpha_sweep", []),
+    ("alpha_768", "probe_alpha_sweep", ["--nnz", "768"]),
+    ("stream", "probe_stream", ["--rows", str(PROBE_ROWS)]),
+    ("embed", "probe_embed_mfu", []),
+    ("serve", "probe_serve_load", ["--duration", "3", "--phases", "1x1,8x1"]),
+)
+
 # the launch counter (bitpack.LAUNCHES) of each kernel of the kernels line
 COUNTERS = {"pack_ell": "pack", "bitpack_scores": "scores",
             "bucketed_keys": "bucketed",
             "int8_bucketed_keys": "int8_bucketed",
             "bitpack_scores_plane": "scores_plane",
-            "bucketed_keys_plane": "bucketed_plane"}
+            "bucketed_keys_plane": "bucketed_plane",
+            # the probe kernels (ops/probes.py, phase 16)
+            "bitcast_rows": "bitcast_rows", "pack_ell_t": "pack_t",
+            "bucketed_keys_t": "bucketed_t",
+            "plane_operand_only": "plane_operand_only",
+            "plane_fragments_only": "plane_fragments_only"}
 
 
 def log(msg: str) -> None:
@@ -545,6 +582,8 @@ def main() -> int:
     ap.add_argument("--dpr-steps", type=int, default=4)
     ap.add_argument("--demo-topics", type=int, default=DEMO_TOPICS)
     ap.add_argument("--demo-epochs", type=int, default=DEMO_EPOCHS)
+    ap.add_argument("--probe-out", default=None,
+                    help="a directory for phase 16's probes' JSON files")
     args = ap.parse_args()
     # the run needs no network: a tokenizer named by a hub id must fail
     # here, not be fetched (read before ``transformers`` is imported)
@@ -933,6 +972,15 @@ def main() -> int:
                             served_texts)
     for e in kernels:  # the launches of phase 15's paths in this process
         e["launches"] += launch_15[COUNTERS[e["name"]]]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 16: the repo's probes on the card -----------------------------
+    p16 = phase_probes(torch, bp, args)
+    for e in kernels:  # the launches of the probes' paths
+        e["launches"] += p16["launches"][COUNTERS[e["name"]]]
+        e.update(p16["fields"].get(e["name"], {}))
+    kernels += p16["entries"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1290,31 +1338,15 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
 def synth_alpha_rows(torch, dev, n: int, seed: int, v: int,
                      nnz: int = ALPHA_NNZ):
     """``n`` real-valued rows made on the card, as the JAX package's
-    alpha-at-scale index (``bench.py``): ``nnz`` ids a row uniform over
-    ``v`` columns, but distinct within a row (a duplicate is drawn again),
-    ascending; weights 0.5 + U[0, 1) in bf16; every slot valid, no
-    sentinel padding. At ``nnz=768`` the rows have the support of
+    alpha-at-scale index (``bench.py``), by the probes' generator
+    (``vsearch_tpu_torch.scripts.common.alpha_rows``): ``nnz`` distinct
+    uniform ids a row, ascending, weights 0.5 + U[0, 1) in bf16, every
+    slot valid. At ``nnz=768`` the rows have the support of
     ``embed_sparse``'s rows at BERT width. Returns (cols [n, nnz] int32,
     nnz [n] int32, vals [n, nnz] bf16) on the card."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    cols = torch.empty((n, nnz), dtype=torch.int32, device=dev)
-    for s in range(0, n, 1 << 20):
-        m = min(1 << 20, n - s)
-        ids = torch.randint(0, v, (m, nnz), generator=gen, device=dev)
-        while True:
-            ids = ids.sort(dim=1).values
-            dup = torch.zeros_like(ids, dtype=torch.bool)
-            dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
-            if not bool(dup.any()):
-                break
-            ids = torch.where(dup, torch.randint(0, v, ids.shape,
-                                                 generator=gen, device=dev),
-                              ids)
-        cols[s:s + m] = ids.to(torch.int32)
-    vals = (0.5 + torch.rand((n, nnz), generator=gen, device=dev)
-            ).to(torch.bfloat16)
-    return cols, torch.full((n,), nnz, dtype=torch.int32, device=dev), vals
+    from vsearch_tpu_torch.scripts.common import alpha_rows
+
+    return alpha_rows(n, v, nnz, seed, dev)
 
 
 def dyadic_operand(torch, rng, dev, vp: int, v: int, b: int = B):
@@ -3788,75 +3820,215 @@ def bf16_gap(got: dict, want: dict) -> tuple:
     return gap, kept, overlap
 
 
+# the kernel wrappers that phases 15 and 16 record, (module of
+# vsearch_tpu_torch.ops, function): every wrapper that launches a kernel
+# (tests/test_torch_package.py::test_every_kernel_has_a_counter_and_a_
+# plain_twin); ``call_counter`` names each call's launch counter
+RECORDED = (("bitpack", "pack_bits"), ("bitpack", "score_bits"),
+            ("bitpack", "bucket_keys"), ("bitpack", "int8_bucket_keys"),
+            ("probes", "bitcast_rows"), ("probes", "pack_bits_t"),
+            ("probes", "bucket_keys_t"), ("probes", "plane_variant"))
+HOLD_ROWS = 1 << 18  # rows a slice of a recorded call's hold
+# a recorded call's tensors up to this size are copied when recorded (a
+# caller may reuse a buffer, as the stream tier's staging); a larger one
+# is kept as it is and must be unchanged (its version) when held
+KEEP_BYTES = 1 << 28
+
+
+def call_counter(fname: str, a: dict) -> str:
+    """The ``bitpack.LAUNCHES`` counter that a call of wrapper ``fname``
+    with the arguments ``a`` (by name) adds to."""
+    if fname == "plane_variant":
+        return a["kernel"]
+    plane = a.get("_form") == "plane"
+    return {"pack_bits": "pack",
+            "score_bits": "scores_plane" if plane else "scores",
+            "bucket_keys": "bucketed_plane" if plane else "bucketed",
+            "int8_bucket_keys": "int8_bucketed",
+            "bitcast_rows": "bitcast_rows", "pack_bits_t": "pack_t",
+            "bucket_keys_t": "bucketed_t"}[fname]
+
+
 @contextlib.contextmanager
-def recorded_kernel_calls(bp, where: dict):
-    """Kernels #1 (``pack_bits``) and #2 (``score_bits``) as the paths run
-    inside call them on the card: the inputs and output of the first call
-    at each shape, under ``where["part"]`` at that time, and the number of
-    calls of each (``"pack"``, and ``"scores"`` or ``"scores_plane"`` by
-    form), to hold against the plain versions and the launch counts once
-    the paths are done."""
-    pack, score = bp.pack_bits, bp.score_bits
-    rec = {"first": {}, "calls": dict(pack=0, scores=0, scores_plane=0)}
+def recorded_kernel_calls(where: dict):
+    """Every kernel wrapper of ``RECORDED`` as the paths run inside call
+    it on the card, wherever the port holds it by name (``ops.bitpack``,
+    ``ops.probes`` and each module that imported it): the calls by launch
+    counter (``rec["calls"]``), and for the first call at each shape (its
+    tensors' shapes and its other arguments) the arguments by name and
+    the output (copies up to ``KEEP_BYTES``), under ``where["part"]`` at
+    that time (``rec["first"]``, for ``hold_recorded_calls``). The plane
+    form's timing variants are counted and never kept. ``rec["orig"]``
+    holds the wrappers themselves, which the holds call."""
+    import inspect
 
-    def pack_rec(cols, nnz, num_cols):
-        out = pack(cols, nnz, num_cols)
-        if out.is_cuda:
-            rec["calls"]["pack"] += 1
-            rec["first"].setdefault(("pack", tuple(cols.shape), num_cols),
-                                    (where["part"], (cols, nnz, num_cols),
-                                     out))
-        return out
+    from vsearch_tpu_torch.ops import bitpack, probes
 
-    def score_rec(words, qT, num_cols=None, _form="gather"):
-        out = score(words, qT, num_cols, _form=_form)
-        if out.is_cuda:
-            rec["calls"]["scores" if _form == "gather"
-                         else "scores_plane"] += 1
-            rec["first"].setdefault(
-                ("scores", tuple(words.shape), tuple(qT.shape), _form),
-                (where["part"], (words, qT, num_cols, _form), out))
-        return out
+    mods = {"bitpack": bitpack, "probes": probes}
+    rec = {"first": {}, "seen": set(), "calls": {}, "orig": {}}
+    wrappers = {}
 
-    bp.pack_bits, bp.score_bits = pack_rec, score_rec
+    def record(fname, fn, sig):
+        def recorded(*a, **kw):
+            out = fn(*a, **kw)
+            if out.device.type == DEVICE:
+                bound = sig.bind(*a, **kw)
+                bound.apply_defaults()
+                args = dict(bound.arguments)
+                c = call_counter(fname, args)
+                rec["calls"][c] = rec["calls"].get(c, 0) + 1
+                key = (fname, c) + tuple(
+                    tuple(v.shape) if hasattr(v, "shape") else v
+                    for v in args.values())
+                if fname != "plane_variant" and key not in rec["seen"]:
+                    rec["seen"].add(key)
+                    large = {}
+                    args = {k: kept(k, v, large) for k, v in args.items()}
+                    rec["first"][key] = (where["part"], args,
+                                         kept("out", out, large), large)
+            return out
+        return recorded
+
+    def kept(name, v, large):
+        if not hasattr(v, "_version"):
+            return v
+        if v.numel() * v.element_size() <= KEEP_BYTES:
+            return v.clone()
+        large[name] = (v, v._version)
+        return v
+
+    for mname, fname in RECORDED:
+        fn = getattr(mods[mname], fname)
+        rec["orig"][fname] = fn
+        wrappers[fname] = record(fname, fn, inspect.signature(fn))
+
+    def swap(table):
+        # ``table``: function -> its replacement, in every module of the port
+        for m in list(sys.modules.values()):
+            if not getattr(m, "__name__", "").startswith("vsearch_tpu_torch"):
+                continue
+            for fname in wrappers:
+                f = getattr(m, fname, None)
+                if f in table:
+                    setattr(m, fname, table[f])
+
+    swap({rec["orig"][f]: w for f, w in wrappers.items()})
     try:
         yield rec
     finally:
-        bp.pack_bits, bp.score_bits = pack, score
+        # also modules first imported inside, which took the recorders
+        swap({w: rec["orig"][f] for f, w in wrappers.items()})
 
 
-def hold_recorded_calls(torch, bp, dev, rec: dict, launches: dict) -> None:
-    """Each shape at which phase 15's paths called #1 and #2 on the card,
-    held against the plain versions on the same inputs: #1's words bit for
-    bit; #2 on the path's own query operand within 1e-5 of the largest
-    score (phase 3's tolerance), and bit for bit on a dyadic operand of
-    the same shape. Every launch of the two must have been recorded."""
-    for name, n in rec["calls"].items():
-        require(n == launches[name], f"phase 15: {n} {name} calls recorded "
-                f"against {launches[name]} launches")
-    rng = np.random.default_rng(15)
-    for key, (part, args, out) in rec["first"].items():
-        if key[0] == "pack":
-            cols, nnz, v = args
-            require(torch.equal(out, bp.pack_bits_plain(cols, nnz, v)),
-                    f"phase 15 {part}: #1 != plain at {key}")
-            log(f"  #1 as {part} called it, {cols.shape[0]} rows x "
-                f"{cols.shape[1]} ids, V' {v} -> {list(out.shape)}: "
-                f"bit-identical to plain")
+def check_recorded_launches(phase: int, rec: dict, launches: dict) -> None:
+    """Every launch of the phase went through a recorded wrapper."""
+    for c, n in launches.items():
+        got = rec["calls"].get(c, 0)
+        require(got == n, f"phase {phase}: {got} {c} calls recorded against "
+                f"{n} launches")
+
+
+def hold_rows(torch, bp, pk, fname: str, a: dict, out, q, s: int, e: int):
+    """(the kernel's output, its plain version's) on rows [s, e) of the
+    call ``a`` of wrapper ``fname`` (#2-#4 or P5) under the query operand
+    ``q``: the rows' scores, or their keys (``s`` a multiple of 1024)."""
+    if fname == "score_bits":
+        return out[s:e], bp.score_bits_plain(a["words"][s:e], q)
+    rows = min(max(a["num_rows"] - s, 0), e - s)
+    got = out[s // a["bucket"]:e // a["bucket"]]
+    if fname == "bucket_keys_t":
+        return got, pk.bucket_keys_t_plain(a["words_t"][:, s:e], q, rows,
+                                           a["bucket"])
+    plain = (bp.int8_bucket_keys_plain if fname == "int8_bucket_keys"
+             else bp.bucket_keys_plain)
+    return got, plain(a["words"][s:e], q, rows, a["bucket"])
+
+
+def hold_call(torch, dev, rng, orig: dict, fname: str, a: dict, out
+              ) -> str:
+    """One recorded call held against its kernel's plain version on the
+    same inputs, in slices of ``HOLD_ROWS`` rows (the plain versions of a
+    2M-row call at once would need tens of GB): P1, P2, #1 and #4 bit for
+    bit; #2 within 1e-5 of the largest score (phase 3's tolerance) and #3
+    in either form and P5 within 2^-12 of the keys' scale (decoded), on
+    the call's own queries, then each of those bit for bit on a dyadic
+    operand of the same shape through the same wrapper. Returns what was
+    held."""
+    from vsearch_tpu_torch.ops import bitpack as bp
+    from vsearch_tpu_torch.ops import probes as pk
+
+    def fail(what):
+        return f"{fname} {what} at {shapes}"
+
+    shapes = {k: list(v.shape) if hasattr(v, "shape") else v
+              for k, v in a.items()}
+    if fname == "bitcast_rows":
+        want = pk.bitcast_rows_plain(a["x"])
+        require(torch.equal(out.view(torch.int16), want.view(torch.int16)),
+                fail("!= plain"))
+        return "bit-identical to plain"
+    if fname in ("pack_bits", "pack_bits_t"):
+        cols, nnz, v = a["cols"], a["nnz"], a["num_cols"]
+        n = cols.shape[0]
+        w = out if fname == "pack_bits" else out.T
+        ok = not bool(w[n:].any())
+        for s, e in ((s, min(n, s + HOLD_ROWS)) for s in range(0, n,
+                                                               HOLD_ROWS)):
+            if fname == "pack_bits":
+                want = bp.pack_bits_plain(cols[s:e], nnz[s:e], v)[:e - s]
+            else:
+                want = pk.pack_bits_t_plain(cols[s:e], nnz[s:e],
+                                            v)[:, :e - s].T
+            ok = ok and torch.equal(w[s:e], want)
+        require(ok, fail("!= plain"))
+        return "bit-identical to plain"
+    words = a["words_t"].T if fname == "bucket_keys_t" else a["words"]
+    n_pad = words.shape[0]
+    q = a["q8T"] if fname == "int8_bucket_keys" else a["qT"]
+    slices = [(s, min(n_pad, s + HOLD_ROWS)) for s in range(0, n_pad,
+                                                            HOLD_ROWS)]
+    dec = lambda kk: (kk & ~1023).view(torch.float32).clamp_min(0)  # noqa
+    err = scale = 0.0
+    for s, e in slices:
+        got, want = hold_rows(torch, bp, pk, fname, a, out, q, s, e)
+        if fname == "int8_bucket_keys":
+            require(torch.equal(got, want), fail("!= plain"))
             continue
-        words, qT, v, form = args
-        want = bp.score_bits_plain(words, qT)
-        err = float((out - want).abs().max())
-        require(err <= 1e-5 * max(float(want.abs().max()), 1.0),
-                f"phase 15 {part}: #2 differs from plain by {err} at {key}")
-        vp, b = qT.shape
-        dyT = dyadic_operand(torch, rng, dev, vp, v or vp, b)
-        require(torch.equal(bp.score_bits(words, dyT, v, _form=form),
-                            bp.score_bits_plain(words, dyT)),
-                f"phase 15 {part}: #2 != plain (dyadic) at {key}")
-        log(f"  #2 ({form} form) as {part} called it, {list(words.shape)} "
-            f"words x [{vp}, {b}] queries: bit-identical to plain (dyadic), "
-            f"max_abs_err {err} (the path's queries)")
+        if fname != "score_bits":
+            got, want = dec(got), dec(want)
+        err = max(err, float((got - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+    if fname == "int8_bucket_keys":
+        return "bit-identical to plain"
+    tol = (1e-5 * max(scale, 1.0) if fname == "score_bits"
+           else 2.0 ** -12 * scale)
+    require(err <= tol, fail(f"differs from plain by {err} (tolerance "
+                             f"{tol})"))
+    vp, b = q.shape
+    dyT = dyadic_operand(torch, rng, dev, vp, a.get("num_cols") or vp, b)
+    dy_out = orig[fname](**dict(a, qT=dyT))
+    for s, e in slices:
+        got, want = hold_rows(torch, bp, pk, fname, a, dy_out, dyT, s, e)
+        require(torch.equal(got, want), fail("!= plain (dyadic)"))
+    return (f"bit-identical to plain (dyadic), max_abs_err {err} "
+            f"{'' if fname == 'score_bits' else 'decoded '}(the call's "
+            f"queries)")
+
+
+def hold_recorded_calls(torch, dev, rec: dict, phase: int) -> None:
+    """Each first call at a shape that ``rec`` kept since the last hold,
+    held against its kernel's plain version (``hold_call``), then let
+    go."""
+    rng = np.random.default_rng(phase)
+    for key, (part, a, out, large) in rec["first"].items():
+        for name, (t, version) in large.items():
+            require(t._version == version, f"{key[1]} as {part} called it: "
+                    f"its {name} changed after the call")
+        shapes = ", ".join(f"{k} {list(v.shape)}" if hasattr(v, "shape")
+                           else f"{k} {v}" for k, v in a.items())
+        what = hold_call(torch, dev, rng, rec["orig"], key[0], a, out)
+        log(f"  {key[1]} as {part} called it ({shapes}): {what}")
+    rec["first"].clear()
 
 
 @contextlib.contextmanager
@@ -4051,9 +4223,9 @@ def phase_tools(torch, bp, dev, args, retriever, queries, texts) -> dict:
     wiki21m scripts over ``texts`` (``tools_scripts``), (c) the
     convergence demo (``tools_demo``). Launch counts are zeroed before (a)
     and read after (c); the script children's launches are their own.
-    Then each shape at which (a)-(c) called kernels #1 and #2 in this
-    process is held against the plain versions on the same inputs.
-    Returns the counts."""
+    Every launch must have been recorded (``recorded_kernel_calls``), and
+    each shape at which (a)-(c) called a kernel in this process is held
+    against its plain version on the same inputs. Returns the counts."""
     import shutil
     import tempfile
 
@@ -4063,7 +4235,7 @@ def phase_tools(torch, bp, dev, args, retriever, queries, texts) -> dict:
     bp.reset_launch_counts()
     where = {"part": "(a)"}
     try:
-        with recorded_kernel_calls(bp, where) as rec:
+        with recorded_kernel_calls(where) as rec:
             ckpt = tools_quick_start(torch, dev, retriever, work)
             where["part"] = "(b)"
             tools_scripts(torch, dev, ckpt, queries, texts, work)
@@ -4076,9 +4248,172 @@ def phase_tools(torch, bp, dev, args, retriever, queries, texts) -> dict:
     log(f"  launches of phase 15 (this process): {launches}")
     require(launches["pack"] >= 1 and launches["scores"] >= 1,
             f"phase 15 skipped kernels #1 or #2: {launches}")
-    hold_recorded_calls(torch, bp, dev, rec, launches)
+    check_recorded_launches(15, rec, launches)
+    hold_recorded_calls(torch, dev, rec, 15)
     log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def hold_probes(r: dict) -> None:
+    """What phase 16's probes must find on the card, beside the holds of
+    every kernel call (``hold_recorded_calls``): P1's layout A; the
+    probes' own checks of P2, P5, #1, #3 and #4; the streamed search
+    equal to the resident one; the fused QKV within its tolerance; no
+    request failed."""
+    bc = r["bitcast"]
+    require(bc["layout"] == "A" and bc["check"]["bit_identical"],
+            f"P1: layout {bc['layout']}, check {bc['check']}")
+    pp = r["pack"]
+    require(pp["packT"]["bit_identical_to_plain"]
+            and pp["pack"]["bit_identical_to_plain"]
+            and pp["words_t_equals_words_T"], f"P2 / #1 at 2M: {pp}")
+    sv = r["scorer"]
+    small = sv["small_check"]
+    require(small["ok"] and small["pack_t_bit_identical"]
+            and small["keys_t_bit_identical_dyadic"], f"P5 check {small}")
+    require(all(sv["pack_checks"].values()), f"P2 / #1: {sv['pack_checks']}")
+    for row in sv["rows"]:
+        require(row["bit_identical_dyadic"] and row["decoded_within"],
+                f"{row['variant']} at 2M x B=1024: {row}")
+    require(sv["plane_split"]["shipped_bit_identical_dyadic"],
+            "#3's plane form on the 768-id block")
+    i8 = r["int8"]
+    for bucket in (16, 32):
+        c8, c3 = i8[f"int8_b{bucket}_check"], i8[f"bf16_b{bucket}_check"]
+        require(c8["bit_identical"] and c3["bit_identical_dyadic"]
+                and c3["decoded_within"], f"#4 / #3 at bucket {bucket}")
+    for label in ("parts", "parts_b32"):
+        bpr = r[label]
+        require(bpr["pack_check"]["bit_identical"]
+                and bpr["keys_bit_identical_dyadic"]
+                and bpr["topk_int_matches"], f"{label}: {bpr}")
+    for row in r["regret"]["rows"]:
+        require(row.get("keys_bit_identical_dyadic", True),
+                f"#3 at {row['n']} rows")
+    st = r["stream"]
+    require(st["stage_a"]["scores_match_resident"]
+            and st["stage_b"]["recall_vs_exact"] >= 0.99,
+            f"stream tier: {st['stage_a']}, recall "
+            f"{st['stage_b']['recall_vs_exact']}")
+    require(r["embed"]["fused_within_atol"],
+            "fused QKV differs from split beyond its tolerance")
+    sl = r["serve"]
+    require(all(ph["errors"] == 0 and ph["requests"] > 0
+                for ph in sl["phases"]), f"serve load: {sl['phases']}")
+
+
+def phase_probes(torch, bp, args) -> dict:
+    """Phase 16: the port's probes (``vsearch_tpu_torch/scripts``), the
+    counterparts of the repo's TPU probes, each ``main`` in this process
+    (``PROBE_RUNS``, two timed repetitions each; the serve load starts its
+    server as a child). Launch counts are zeroed before each probe and
+    read after it; every launch must have been recorded
+    (``recorded_kernel_calls``), and after each probe every shape at which
+    it first called a kernel is held against the plain version on the
+    same inputs (``hold_recorded_calls``). ``hold_probes`` then holds
+    what the probes found. Returns the launches, the kernels line's
+    entries of the probe kernels and fields for the entries of #1, #3
+    and #4."""
+    import importlib
+
+    t_phase = time.perf_counter()
+    log("phase 16: the repo's probes on the card")
+    if args.probe_out:
+        os.makedirs(args.probe_out, exist_ok=True)
+    r = {}
+    launches = dict.fromkeys(bp.LAUNCHES, 0)
+    where = {}
+    with recorded_kernel_calls(where) as rec:
+        for key, name, argv in PROBE_RUNS:
+            label = " ".join([name] + argv)
+            where["part"] = label
+            t0 = time.perf_counter()
+            out = ([] if not args.probe_out else ["--out", os.path.join(
+                args.probe_out, label.replace(" ", "_").replace("-", "")
+                + ".json")])
+            mod = importlib.import_module(f"vsearch_tpu_torch.scripts.{name}")
+            torch.cuda.synchronize()
+            bp.reset_launch_counts()
+            r[key] = mod.main(argv + ["--iters", "2", "--seed",
+                                        str(args.seed), "--device",
+                                        DEVICE] + out)
+            torch.cuda.synchronize()
+            for c, n in bp.LAUNCHES.items():
+                launches[c] += n
+            t_hold = time.perf_counter()
+            hold_recorded_calls(torch, DEVICE, rec, 16)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"  {label}: {t_hold - t0:.1f} s, its holds "
+                f"{time.perf_counter() - t_hold:.1f} s")
+    log(f"  launches of phase 16: {launches}")
+    check_recorded_launches(16, rec, launches)
+    log("  every launch was recorded: " + ", ".join(
+        f"{c} {n}" for c, n in launches.items() if n))
+    require(all(launches[c] for c in bp.LAUNCHES if c != "scores_plane"),
+            f"phase 16's probes skipped a kernel: {launches}")
+    hold_probes(r)
+    log("  held: P1 layout A; every kernel call at each shape above "
+        "against its plain version; stream = resident; fused QKV; no "
+        "failed request")
+    bc, pp, sv = r["bitcast"], r["pack"], r["scorer"]
+    rows = {row["variant"]: row for row in sv["rows"]}
+    ps = sv["plane_split"]
+    log(f"  P5 at 2M x B=1024: {rows['v3_transpose']['ms']} ms against #3 "
+        f"gather {rows['v0_current']['ms']} ms, plane {rows['plane']['ms']}"
+        f" ms; keys equal to #3's gather form for the random queries: "
+        f"{sv['v3_equals_v0']}")
+    log(f"  the plane form's split (768-id block, B=32): shipped "
+        f"{ps['shipped_ms']} ms, operand only {ps['operand_only_ms']} ms, "
+        f"fragments only {ps['fragments_only_ms']} ms (bound "
+        f"{ps['bound_ms']:.3f} ms)")
+    entries = []
+
+    def add(name, source, replaces, err, ms, plain_ms, bnd, library_ms,
+            **extra):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"vsearch_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches[COUNTERS[name]],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "library_ms": library_ms, **extra})
+        log(f"  {name}: {ms} ms (plain {plain_ms} ms, bound "
+            f"{bnd['bound_ms']} ms, library {library_ms})")
+
+    # P1's plain expression is also its one-call library counterpart
+    add("bitcast_rows", "probe_bitcast.cu",
+        "scripts/probe_bitcast_layout.py:52", bc["check"]["max_abs_err"],
+        bc["ms"], bc["plain_ms"], bc, bc["plain_ms"], shape="[8, 128] u32")
+    add("pack_ell_t", "pack_t.cu", "scripts/probe_pack.py:49", 0,
+        pp["packT"]["ms"], pp["packT"]["plain_ms"], pp["packT"], None,
+        shape="2,000,000 x 128 ids (64 valid), V'=29,523")
+    v3 = rows["v3_transpose"]
+    add("bucketed_keys_t", "bucketed_t.cu",
+        "scripts/probe_scorer_variants.py:198", v3["max_abs_err"], v3["ms"],
+        v3["plain_ms"], v3, None,
+        shape="2,000,000 rows of ~119 ids, B=1024, bucket 8")
+    for v in ("operand_only", "fragments_only"):
+        # timing only: the keys are not the function's and are not compared
+        add(f"plane_{v}", f"plane_{v}.cu",
+            "scripts/probe_scorer_variants.py:141", None, ps[f"{v}_ms"],
+            ps["plain_ms"], ps, None, timing_only=True,
+            shipped_ms=ps["shipped_ms"],
+            shape="262,144 rows of 768 ids, B=32, bucket 8")
+    i8 = r["int8"]
+    fields = {
+        "pack_ell": {"probe_2m_ms": pp["pack"]["ms"],
+                     "probe_2m_plain_ms": pp["pack"]["plain_ms"],
+                     "probe_2m_bound_ms": pp["pack"]["bound_ms"]},
+        "bucketed_keys": {"probe_2m_b1024_ms": rows["v0_current"]["ms"],
+                          "probe_2m_b1024_bound_ms":
+                          rows["v0_current"]["bound_ms"]},
+        "bucketed_keys_plane": {"probe_2m_b1024_ms": rows["plane"]["ms"]},
+        "int8_bucketed_keys": {"probe_block_b1024_ms": i8["int8_b16_ms"],
+                               "probe_block_b1024_plain_ms":
+                               i8["int8_b16_plain_ms"]}}
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "entries": entries, "fields": fields}
 
 
 def free_port() -> int:

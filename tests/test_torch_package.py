@@ -56,7 +56,13 @@ def test_import_with_jax_blocked():
         " 'vsearch_tpu_torch.utils.vis',\n"
         " 'vsearch_tpu_torch.examples.synthetic_vocab',\n"
         " 'vsearch_tpu_torch.examples.quick_start',\n"
-        " 'vsearch_tpu_torch.examples.train_demo'}\n"
+        " 'vsearch_tpu_torch.examples.train_demo',\n"
+        " 'vsearch_tpu_torch.ops.probes'} | {\n"
+        " 'vsearch_tpu_torch.scripts.' + p for p in (\n"
+        " 'probe_bitcast_layout', 'probe_pack', 'probe_scorer_variants',\n"
+        " 'probe_int8_scorer', 'probe_block_parts', 'probe_block_b2048',\n"
+        " 'bitpack_regret_probe', 'probe_alpha_sweep', 'probe_stream',\n"
+        " 'probe_embed_mfu', 'probe_serve_server', 'probe_serve_load')}\n"
         "assert need <= names, need - names\n"
         "from vsearch_tpu_torch.retriever import Retriever\n"
         "assert Retriever.retireve_negatives is Retriever.retrieve_negatives\n"
@@ -120,26 +126,40 @@ def test_entry_points_raise_without_cuda():
 
 def test_every_kernel_has_a_counter_and_a_plain_twin():
     """Each source in ``cuda_build.SOURCES`` is launched by exactly one
-    wrapper in ``ops/bitpack.py`` (``_launch("name", ...)``), has a
-    counter in ``LAUNCHES``, and its wrapper ``f`` runs ``f_plain``, a
-    function of the same module: a kernel cannot land without its
-    twin."""
-    from vsearch_tpu_torch.ops import bitpack, cuda_build
+    wrapper in ``ops/bitpack.py`` or ``ops/probes.py`` (``_launch("name",
+    ...)``, or ``_plane_keys("name", ...)``, the launcher that kernel #3's
+    plane form shares with its timing variants; ``probes.plane_variant``
+    launches each of ``probes.PLANE_VARIANTS``), has a counter in
+    ``LAUNCHES``, and its wrapper ``f`` runs ``f_plain``, a function of
+    the same module: a kernel cannot land without its twin."""
+    from vsearch_tpu_torch.ops import bitpack, cuda_build, probes
 
-    with open(bitpack.__file__) as f:
-        tree = ast.parse(f.read())
+    launchers = ("_launch", "_plane_keys")
     launched = {}
-    for fn in tree.body:
-        if not isinstance(fn, ast.FunctionDef):
-            continue
-        calls = [c for c in ast.walk(fn) if isinstance(c, ast.Call)
-                 and isinstance(c.func, ast.Name)]
-        for c in calls:
-            if c.func.id == "_launch":
-                launched[c.args[0].value] = fn.name
-                assert f"{fn.name}_plain" in {d.func.id for d in calls}, \
-                    fn.name
-                assert callable(getattr(bitpack, f"{fn.name}_plain"))
+    for mod in (bitpack, probes):
+        with open(mod.__file__) as f:
+            tree = ast.parse(f.read())
+        for fn in tree.body:
+            if not isinstance(fn, ast.FunctionDef) or fn.name == "_plane_keys":
+                continue
+            calls = [c for c in ast.walk(fn) if isinstance(c, ast.Call)]
+            names = {c.func.id for c in calls if isinstance(c.func, ast.Name)}
+            for c in calls:
+                if not (isinstance(c.func, ast.Name) and c.func.id in launchers
+                        or isinstance(c.func, ast.Attribute)
+                        and c.func.attr in launchers):
+                    continue
+                arg = c.args[0]
+                if isinstance(arg, ast.Constant):
+                    kernels = [arg.value]
+                else:
+                    assert fn.name == "plane_variant", fn.name
+                    kernels = list(probes.PLANE_VARIANTS)
+                for k in kernels:
+                    assert k not in launched, k
+                    launched[k] = fn.name
+                assert f"{fn.name}_plain" in names, fn.name
+                assert callable(getattr(mod, f"{fn.name}_plain"))
     assert set(launched) == set(cuda_build.SOURCES) == \
         set(bitpack.LAUNCHES), launched
 
@@ -168,11 +188,17 @@ def checkpoint(tmp_path_factory):
     "dense_index", "search_sparse_index", "search_dense_index",
     "beta_search", "convert_checkpoint", "trace", "device_memory_stats",
     "eval_beir", "dpr", "crossmodal_text", "crossmodal_image", "train",
-    "quick_start", "train_demo", "build_bot_ell"])
+    "quick_start", "train_demo", "build_bot_ell", *(
+        "scripts." + p for p in (
+            "probe_bitcast_layout", "probe_pack", "probe_scorer_variants",
+            "probe_int8_scorer", "probe_block_parts", "probe_block_b2048",
+            "bitpack_regret_probe", "probe_alpha_sweep", "probe_stream",
+            "probe_embed_mfu", "probe_serve_server", "probe_serve_load"))])
 def test_new_entry_points_raise_without_cuda(checkpoint, entry):
     """The checkpoint loader, every CLI of ``cli/`` (no ``--device``), the
     encoders, the device readers of ``utils/``, the tools of
-    ``examples/`` and the bag-of-token build raise without CUDA."""
+    ``examples/``, the probes of ``scripts/`` and the bag-of-token build
+    raise without CUDA."""
     import importlib
 
     import torch
@@ -239,6 +265,8 @@ def test_new_entry_points_raise_without_cuda(checkpoint, entry):
         elif entry == "train_demo":
             from vsearch_tpu_torch.examples import train_demo
             train_demo.main(["--num-topics", "4"])
+        elif entry.startswith("scripts."):
+            importlib.import_module(f"vsearch_tpu_torch.{entry}").main([])
         elif entry == "build_bot_ell":
             from tests.helpers import make_tokenizer
             from vsearch_tpu_torch.index.bot_build import build_bot_ell

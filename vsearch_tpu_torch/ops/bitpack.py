@@ -52,7 +52,11 @@ INT32_MIN = -(2 ** 31)
 # its main path went through the kernels
 LAUNCHES: Dict[str, int] = {"pack": 0, "scores": 0, "bucketed": 0,
                             "int8_bucketed": 0, "scores_plane": 0,
-                            "bucketed_plane": 0}
+                            "bucketed_plane": 0,
+                            # the probe kernels (ops/probes.py)
+                            "bitcast_rows": 0, "pack_t": 0, "bucketed_t": 0,
+                            "plane_operand_only": 0,
+                            "plane_fragments_only": 0}
 
 
 def reset_launch_counts() -> None:
@@ -467,6 +471,30 @@ def splice_keys(scores: torch.Tensor, num_rows: int, bucket: int
     return _fold_keys(keys, num_rows, bucket)
 
 
+def _plane_keys(kernel: str, words: torch.Tensor, qT: torch.Tensor,
+                num_rows: int, bucket: int, num_cols: Optional[int]
+                ) -> torch.Tensor:
+    """One launch of kernel #3's plane form (``kernel`` "bucketed_plane"),
+    or of one of its timing variants (``ops.probes.plane_variant``), on
+    CUDA tensors: the same geometry, operand and keys for each."""
+    _check_queries(kernel, words, qT)
+    n_pad, w = words.shape
+    b = qT.shape[1]
+    qp = _pad_queries(qT)
+    _check_rows(kernel, words, qp)
+    g = plane_geometry(n_pad, b, w, w * 32 if num_cols is None
+                       else num_cols, bucket)
+    qi = _plane_operand(qp, g.nplanes)
+    shape = (n_pad // bucket, b)
+    keys = (torch.empty(shape, dtype=torch.int32, device=words.device)
+            if g.split == 1 else
+            torch.full(shape, INT32_MIN, dtype=torch.int32,
+                       device=words.device))
+    return _launch(kernel, keys, words.data_ptr(), qi.data_ptr(),
+                   keys.data_ptr(), num_rows, n_pad, w, g.nplanes, b,
+                   qp.shape[1], ROW_BLOCK // bucket, g.split, g.grid[0])
+
+
 def bucket_keys(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
                 bucket: int = BUCKET, num_cols: Optional[int] = None,
                 _form: str = "gather") -> torch.Tensor:
@@ -478,24 +506,14 @@ def bucket_keys(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
     if _uses_plain("bucket_keys", (words, torch.int32),
                    (qT, torch.bfloat16)):
         return bucket_keys_plain(words, qT, num_rows, bucket)
+    if _form == "plane":
+        return _plane_keys("bucketed_plane", words, qT, num_rows, bucket,
+                           num_cols)
     _check_queries("bucket_keys", words, qT)
     n_pad, w = words.shape
     b = qT.shape[1]
     qp = _pad_queries(qT)
     _check_rows("bucket_keys", words, qp)
-    if _form == "plane":
-        g = plane_geometry(n_pad, b, w, w * 32 if num_cols is None
-                           else num_cols, bucket)
-        qi = _plane_operand(qp, g.nplanes)
-        shape = (n_pad // bucket, b)
-        keys = (torch.empty(shape, dtype=torch.int32, device=words.device)
-                if g.split == 1 else
-                torch.full(shape, INT32_MIN, dtype=torch.int32,
-                           device=words.device))
-        return _launch("bucketed_plane", keys, words.data_ptr(),
-                       qi.data_ptr(), keys.data_ptr(), num_rows, n_pad, w,
-                       g.nplanes, b, qp.shape[1], ROW_BLOCK // bucket,
-                       g.split, g.grid[0])
     geom = fold_geometry(n_pad, bucket, b, w)
     keys = torch.empty((n_pad // bucket, b), dtype=torch.int32,
                        device=words.device)

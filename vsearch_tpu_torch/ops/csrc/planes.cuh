@@ -160,6 +160,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// The variants of the pass. Only kPlaneShipped computes the function; the
+// other two are timing probes, built into their own libraries
+// (plane_operand_only.cu, plane_fragments_only.cu) and never on a search
+// path, whose keys are neither compared nor used. Both stream the rows'
+// words from device memory as the shipped pass does, and each drops one
+// of the pass's other two streams of work: kPlaneOperandOnly loads every
+// word but builds no fragments (it multiplies one fixed pair, and the
+// loaded words go to an asm sink), so only the operand streams through
+// the ring; kPlaneFragmentsOnly fills the ring once and multiplies its
+// slices again, so only the fragments are built.
+constexpr int kPlaneShipped = 0;
+constexpr int kPlaneOperandOnly = 1;
+constexpr int kPlaneFragmentsOnly = 2;
+
 // The plane core: this CTA runs `passes` passes of 256 rows, the first at
 // row `row0`, pass i at row0 + i * 256, over the query tile blockIdx.y.
 // After each pass every consumer thread calls epi(row, acc) with its first
@@ -172,8 +186,9 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // 2 * nplanes, 4096 B]: the query operand as the ring's slices, in step
 // order (bitpack._plane_operand). nplanes = the planes of the row below
 // num_cols, ceil(num_cols / 128) rounded up to even; tile t holds
-// min(32, nplanes - 32 t).
-template <typename Epi>
+// min(32, nplanes - 32 t). `kVariant` is kPlaneShipped but in the timing
+// probes (above).
+template <int kVariant = kPlaneShipped, typename Epi>
 __device__ __forceinline__ void plane_rows(
     const uint32_t* __restrict__ words, const uint8_t* __restrict__ qI,
     long long n_pad, int num_words, int nplanes, long long row0, int passes,
@@ -200,7 +215,10 @@ __device__ __forceinline__ void plane_rows(
     if ((tid & 31) == 0) {
       const uint8_t* src = qI + (size_t)blockIdx.y * pass_steps *
                                     kPlaneStepBytes;
-      for (int s = 0; s < total; ++s) {
+      const int loads = kVariant == kPlaneFragmentsOnly
+                            ? min(total, kPlaneStages)
+                            : total;
+      for (int s = 0; s < loads; ++s) {
         const int slot = (int)(s % kPlaneStages);
         const int use = (int)(s / kPlaneStages);
         if (use > 0) mbar_wait(&empty[slot], (use - 1) & 1);
@@ -236,6 +254,7 @@ __device__ __forceinline__ void plane_rows(
         // k16 chunk c: r = 0, 1 rows r0, r1 at columns 2 tig, +1; r = 2, 3
         // at columns 2 tig + 8, +9 (columns = words 64 h + 16 c + ...)
         uint32_t z[4][4][2];
+        uint32_t sink = 0;  // kPlaneOperandOnly: the words, kept loaded
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int w = t * 128 + h * 64 + c * 16 + 2 * tig;
@@ -246,10 +265,16 @@ __device__ __forceinline__ void plane_rows(
           v[3] = __ldcs(reinterpret_cast<const uint2*>(w1 + w + 8));
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            z[c][r][0] = __byte_perm(v[r].x, v[r].y, 0x5410);
-            z[c][r][1] = __byte_perm(v[r].x, v[r].y, 0x7632);
+            if constexpr (kVariant == kPlaneOperandOnly) {
+              sink ^= v[r].x ^ v[r].y;
+            } else {
+              z[c][r][0] = __byte_perm(v[r].x, v[r].y, 0x5410);
+              z[c][r][1] = __byte_perm(v[r].x, v[r].y, 0x7632);
+            }
           }
         }
+        if constexpr (kVariant == kPlaneOperandOnly)
+          asm volatile("" ::"r"(sink));
         // planes p, p + 1 a round (tiles hold even counts: nplanes is
         // even, bitpack.plane_geometry): one rotation puts bits p, p + 1
         // of both halves at bits 13, 14 and 29, 30, and two masks make
@@ -264,14 +289,22 @@ __device__ __forceinline__ void plane_rows(
           for (int c = 0; c < 4; ++c)
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
-              const uint32_t x = __funnelshift_l(
-                  z[c][r][p >> 4], z[c][r][p >> 4], (13 - (p & 15)) & 31);
-              ae[c][r] = x & 0x20002000u;
-              ao[c][r] = x & 0x40004000u;
+              if constexpr (kVariant == kPlaneOperandOnly) {
+                ae[c][r] = 0x20002000u;  // one fixed pair, no building
+                ao[c][r] = 0x40004000u;
+              } else {
+                const uint32_t x = __funnelshift_l(
+                    z[c][r][p >> 4], z[c][r][p >> 4], (13 - (p & 15)) & 31);
+                ae[c][r] = x & 0x20002000u;
+                ao[c][r] = x & 0x40004000u;
+              }
             }
           const int s0 = step % kPlaneStages, s1 = (step + 1) % kPlaneStages;
-          mbar_wait(&full[s0], (step / kPlaneStages) & 1);
-          mbar_wait(&full[s1], ((step + 1) / kPlaneStages) & 1);
+          // kPlaneFragmentsOnly: the ring's slots hold their first slices
+          // for good (the phase of parity 0 completes once)
+          const bool once = kVariant == kPlaneFragmentsOnly;
+          mbar_wait(&full[s0], once ? 0 : (step / kPlaneStages) & 1);
+          mbar_wait(&full[s1], once ? 0 : ((step + 1) / kPlaneStages) & 1);
           asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
           for (int c = 0; c < 4; ++c)
@@ -281,7 +314,7 @@ __device__ __forceinline__ void plane_rows(
             wgmma_m64n32k16(acc, ao[c], desc0 + s1 * 256 + c * 64);
           asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
           asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-          if (lane == 0) {
+          if (lane == 0 && kVariant != kPlaneFragmentsOnly) {
             mbar_arrive(&empty[s0]);
             mbar_arrive(&empty[s1]);
           }
@@ -300,11 +333,17 @@ __device__ __forceinline__ void consumers_sync() {
 
 }  // namespace vs
 
-// `<entry>_occupancy`: the CTAs of a plane-form `kernel` one SM holds.
-#define VS_PLANE_OCCUPANCY_ENTRY(entry, kernel)                \
-  extern "C" int entry##_occupancy(int* ctas_per_sm) {         \
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
-        ctas_per_sm, kernel, vs::kPlaneThreads, vs::kPlaneRingBytes); \
+// `<entry>_occupancy`: the CTAs of a plane-form `kernel` one SM holds,
+// with the ring's dynamic shared memory opted in first (as at a launch:
+// the query must not depend on a launch having come before it).
+#define VS_PLANE_OCCUPANCY_ENTRY(entry, kernel)                          \
+  extern "C" int entry##_occupancy(int* ctas_per_sm) {                   \
+    cudaError_t e = cudaFuncSetAttribute(                                \
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,             \
+        vs::kPlaneRingBytes);                                            \
+    if (e != cudaSuccess) return (int)e;                                 \
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(           \
+        ctas_per_sm, kernel, vs::kPlaneThreads, vs::kPlaneRingBytes);    \
   }
 
 // launch `kernel` with the ring's dynamic shared memory, opted in first

@@ -24,7 +24,12 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 SOURCES = {"pack": "pack.cu", "scores": "scores.cu",
            "bucketed": "bucketed.cu", "int8_bucketed": "int8_bucketed.cu",
            "scores_plane": "scores_plane.cu",
-           "bucketed_plane": "bucketed_plane.cu"}
+           "bucketed_plane": "bucketed_plane.cu",
+           # the probe kernels (ops/probes.py; vsearch_tpu_torch/scripts)
+           "bitcast_rows": "probe_bitcast.cu", "pack_t": "pack_t.cu",
+           "bucketed_t": "bucketed_t.cu",
+           "plane_operand_only": "plane_operand_only.cu",
+           "plane_fragments_only": "plane_fragments_only.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -52,6 +57,18 @@ _SIGNATURES = {
     # split, grid_x)
     "bucketed_plane": ("vs_bucketed_keys_plane",
                        [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
+    # (x, out, s, l)
+    "bitcast_rows": ("vs_bitcast_rows", [_P, _P, _L, _I, _P]),
+    # (cols, nnz, words_t, n, n_pad, nnz_pad, v, num_words)
+    "pack_t": ("vs_pack_ell_t", [_P, _P, _P, _L, _L, _I, _I, _I, _P]),
+    # (words_t, qT, keys, num_rows, n_pad, num_words, b, b_pad, kb)
+    "bucketed_t": ("vs_bucketed_keys_t", [_P, _P, _P, _L, _L] + [_I] * 4
+                   + [_P]),
+    # the arguments of "bucketed_plane"
+    "plane_operand_only": ("vs_plane_operand_only",
+                           [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
+    "plane_fragments_only": ("vs_plane_fragments_only",
+                             [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
 }
 
 
@@ -131,9 +148,10 @@ def kernel_fn(name: str):
 
 
 def occupancy(name: str) -> int:
-    """CTAs of kernel ``name`` (any of ``SOURCES`` but "pack") that one
-    SM of the current device holds at once, as the CUDA runtime
-    works them out from the kernel's registers and shared memory."""
+    """CTAs of kernel ``name`` (#2-#4 in either form, and the plane
+    form's timing variants) that one SM of the current device holds at
+    once, as the CUDA runtime works them out from the kernel's registers
+    and shared memory."""
     kernel_fn(name)  # builds and loads the library
     fn = getattr(_libs[name], _SIGNATURES[name][0] + "_occupancy")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
