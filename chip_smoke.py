@@ -180,6 +180,7 @@ import re
 import resource
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -305,6 +306,7 @@ COUNTERS = {"pack_ell": "pack", "bitpack_scores": "scores",
             # the probe kernels (ops/probes.py, phase 16)
             "bitcast_rows": "bitcast_rows", "pack_ell_t": "pack_t",
             "bucketed_keys_t": "bucketed_t",
+            "bucketed_keys_t_decode_only": "bucketed_t_decode_only",
             "plane_operand_only": "plane_operand_only",
             "plane_fragments_only": "plane_fragments_only"}
 
@@ -3827,7 +3829,11 @@ def bf16_gap(got: dict, want: dict) -> tuple:
 RECORDED = (("bitpack", "pack_bits"), ("bitpack", "score_bits"),
             ("bitpack", "bucket_keys"), ("bitpack", "int8_bucket_keys"),
             ("probes", "bitcast_rows"), ("probes", "pack_bits_t"),
-            ("probes", "bucket_keys_t"), ("probes", "plane_variant"))
+            ("probes", "bucket_keys_t"), ("probes", "plane_variant"),
+            ("probes", "bucket_keys_t_decode_only"))
+# the wrappers of timing-only kernels: counted, never held (their keys
+# are not the function's)
+TIMING_ONLY = ("plane_variant", "bucket_keys_t_decode_only")
 HOLD_ROWS = 1 << 18  # rows a slice of a recorded call's hold
 # a recorded call's tensors up to this size are copied when recorded (a
 # caller may reuse a buffer, as the stream tier's staging); a larger one
@@ -3846,7 +3852,8 @@ def call_counter(fname: str, a: dict) -> str:
             "bucket_keys": "bucketed_plane" if plane else "bucketed",
             "int8_bucket_keys": "int8_bucketed",
             "bitcast_rows": "bitcast_rows", "pack_bits_t": "pack_t",
-            "bucket_keys_t": "bucketed_t"}[fname]
+            "bucket_keys_t": "bucketed_t",
+            "bucket_keys_t_decode_only": "bucketed_t_decode_only"}[fname]
 
 
 @contextlib.contextmanager
@@ -3857,9 +3864,10 @@ def recorded_kernel_calls(where: dict):
     counter (``rec["calls"]``), and for the first call at each shape (its
     tensors' shapes and its other arguments) the arguments by name and
     the output (copies up to ``KEEP_BYTES``), under ``where["part"]`` at
-    that time (``rec["first"]``, for ``hold_recorded_calls``). The plane
-    form's timing variants are counted and never kept. ``rec["orig"]``
-    holds the wrappers themselves, which the holds call."""
+    that time (``rec["first"]``, for ``hold_recorded_calls``). The
+    timing-only kernels (``TIMING_ONLY``) are counted and never kept.
+    ``rec["orig"]`` holds the wrappers themselves, which the holds
+    call."""
     import inspect
 
     from vsearch_tpu_torch.ops import bitpack, probes
@@ -3880,7 +3888,7 @@ def recorded_kernel_calls(where: dict):
                 key = (fname, c) + tuple(
                     tuple(v.shape) if hasattr(v, "shape") else v
                     for v in args.values())
-                if fname != "plane_variant" and key not in rec["seen"]:
+                if fname not in TIMING_ONLY and key not in rec["seen"]:
                     rec["seen"].add(key)
                     large = {}
                     args = {k: kept(k, v, large) for k, v in args.items()}
@@ -4277,6 +4285,14 @@ def hold_probes(r: dict) -> None:
                 f"{row['variant']} at 2M x B=1024: {row}")
     require(sv["plane_split"]["shipped_bit_identical_dyadic"],
             "#3's plane form on the 768-id block")
+    require(sv["v3_equals_v0"], "P5's keys differ from #3's gather form at "
+            "2M x B=1024 (random weights)")
+    lc = sv["long_check"]
+    require(all(lc[f"b{k}_{w}"] for k in (1, 8)
+                for w in ("equals_gather", "bit_identical_dyadic"))
+            and lc["rows_past_cap"] > 0 and lc["long_rows_counted"]
+            == lc["launches"] * lc["rows_past_cap"],
+            f"P5 on rows longer than its lists: {lc}")
     i8 = r["int8"]
     for bucket in (16, 32):
         c8, c3 = i8[f"int8_b{bucket}_check"], i8[f"bf16_b{bucket}_check"]
@@ -4302,6 +4318,45 @@ def hold_probes(r: dict) -> None:
                 for ph in sl["phases"]), f"serve load: {sl['phases']}")
 
 
+def phase_launch(torch, args) -> dict:
+    """Phase 16 (b), outside the recorder (which wraps each kernel call
+    and would time itself): ``probe_launch_cost``, the host time of one
+    kernel call through ``bitpack._launch`` against the uncached launch
+    path (``probe_launch_cost.legacy_launch``), for P1 and for #2 on
+    4,096 rows; P1 against its plain
+    expression in turns at [8, 128] and [65,536, 1,024], held bit for bit
+    there and at [4,099, 1,030]."""
+    from vsearch_tpu_torch.scripts import probe_launch_cost
+
+    out = [] if not args.probe_out else [
+        "--out", os.path.join(args.probe_out, "probe_launch_cost.json")]
+    r = probe_launch_cost.main(["--seed", str(args.seed), "--device",
+                                DEVICE] + out)
+    h = {k: "n/a" if v is None else f"{v:.2f}"  # None: a CPU rehearsal
+         for k, v in r["host_us_a_call"].items()}
+    log(f"  host us a call (time.perf_counter, {r['calls']} calls in "
+        f"turns; {threading.active_count()} threads in this process): "
+        f"P1 wrapper {h['p1_wrapper']}, its plain expression "
+        f"{h['p1_plain']}; _launch {h['p1_launch']} against the "
+        f"uncached path {h['p1_legacy_launch']}; the bare ctypes "
+        f"call {h['p1_ctypes']}; the uncached path's parts: device guard "
+        f"{h['guard']}, Stream object {h['stream_object']}, "
+        f"lookup and typing {h['lookup_and_type']}")
+    log(f"  #2 on 4,096 rows of 64 ids, B=32: wrapper {h['s2_wrapper']}"
+        f" us, _launch {h['s2_launch']} against the uncached path's "
+        f"{h['s2_legacy_launch']}")
+    for label, c in r["p1"].items():
+        require(c["bit_identical"], f"P1 at {c['shape']} != plain: {c}")
+        if "p1_ms" in c:
+            log(f"  P1 at {c['shape']}: {c['p1_ms']} ms against its "
+                f"plain expression {c['plain_ms']} (in turns, rounds "
+                f"{c['p1_rounds_ms']} / {c['plain_rounds_ms']}), bound "
+                f"{c['bound_ms']:.4g} ms ({c['bound_by']}); bit-identical")
+        else:
+            log(f"  P1 at {c['shape']}: bit-identical to plain")
+    return r
+
+
 def phase_probes(torch, bp, args) -> dict:
     """Phase 16: the port's probes (``vsearch_tpu_torch/scripts``), the
     counterparts of the repo's TPU probes, each ``main`` in this process
@@ -4311,10 +4366,12 @@ def phase_probes(torch, bp, args) -> dict:
     (``recorded_kernel_calls``), and after each probe every shape at which
     it first called a kernel is held against the plain version on the
     same inputs (``hold_recorded_calls``). ``hold_probes`` then holds
-    what the probes found. Returns the launches, the kernels line's
-    entries of the probe kernels and fields for the entries of #1, #3
-    and #4."""
+    what the probes found, and (b) ``phase_launch`` times the launch path
+    and P1 outside the recorder. Returns the launches, the kernels line's
+    entries of the probe kernels and fields for the entries of #1-#4."""
     import importlib
+
+    from vsearch_tpu_torch.ops import cuda_build
 
     t_phase = time.perf_counter()
     log("phase 16: the repo's probes on the card")
@@ -4354,15 +4411,32 @@ def phase_probes(torch, bp, args) -> dict:
             f"phase 16's probes skipped a kernel: {launches}")
     hold_probes(r)
     log("  held: P1 layout A; every kernel call at each shape above "
-        "against its plain version; stream = resident; fused QKV; no "
+        "against its plain version; P5 = #3's gather form at 2M x B=1024 "
+        "and on rows past its lists; stream = resident; fused QKV; no "
         "failed request")
     bc, pp, sv = r["bitcast"], r["pack"], r["scorer"]
     rows = {row["variant"]: row for row in sv["rows"]}
-    ps = sv["plane_split"]
-    log(f"  P5 at 2M x B=1024: {rows['v3_transpose']['ms']} ms against #3 "
-        f"gather {rows['v0_current']['ms']} ms, plane {rows['plane']['ms']}"
+    ps, vs, lc = sv["plane_split"], sv["v3_split"], sv["long_check"]
+    occupancy = (cuda_build.occupancy("bucketed_t") if DEVICE == "cuda"
+                 else "n/a")
+    log(f"  P5 at 2M x B=1024, in turns (median of rounds): "
+        f"{rows['v3_transpose']['ms']} ms (rounds "
+        f"{rows['v3_transpose']['rounds_ms']}) "
+        f"against #3 gather {rows['v0_current']['ms']} ms (rounds "
+        f"{rows['v0_current']['rounds_ms']}), plane {rows['plane']['ms']}"
         f" ms; keys equal to #3's gather form for the random queries: "
         f"{sv['v3_equals_v0']}")
+    log(f"  P5's split: words and decode alone {vs['decode_only_ms']} ms "
+        f"(rounds {vs['decode_only_rounds_ms']}), so the sweep's gathers "
+        f"and adds {vs['sweep_ms']} ms ({vs['qT_gather_bytes'] / 1e9:.1f} "
+        f"GB of qT gathers); geometry {vs['geometry']}; {occupancy} CTAs "
+        f"an SM (runtime occupancy); long rows at that shape "
+        f"{sv['v3_long_rows']}")
+    log(f"  P5 on {lc['rows']} rows of up to {lc['max_ids']} ids "
+        f"({lc['rows_past_cap']} past the lists' {lc['cap']}), B="
+        f"{lc['b']}: = #3's gather form at buckets 1 and 8; long-row path "
+        f"taken {lc['long_rows_counted']} times in {lc['launches']} "
+        f"launches")
     log(f"  the plane form's split (768-id block, B=32): shipped "
         f"{ps['shipped_ms']} ms, operand only {ps['operand_only_ms']} ms, "
         f"fragments only {ps['fragments_only_ms']} ms (bound "
@@ -4381,10 +4455,19 @@ def phase_probes(torch, bp, args) -> dict:
         log(f"  {name}: {ms} ms (plain {plain_ms} ms, bound "
             f"{bnd['bound_ms']} ms, library {library_ms})")
 
-    # P1's plain expression is also its one-call library counterpart
+    # P1's plain expression is also its one-call library counterpart;
+    # its times are phase 16 (b)'s, taken outside the recorder
+    lc1 = phase_launch(torch, args)
+    p1s, p1l = lc1["p1"]["small"], lc1["p1"]["large"]
+    host = lc1["host_us_a_call"]
     add("bitcast_rows", "probe_bitcast.cu",
-        "scripts/probe_bitcast_layout.py:52", bc["check"]["max_abs_err"],
-        bc["ms"], bc["plain_ms"], bc, bc["plain_ms"], shape="[8, 128] u32")
+        "scripts/probe_bitcast_layout.py:52",
+        max(c["max_abs_err"] for c in lc1["p1"].values()), p1s["p1_ms"],
+        p1s["plain_ms"], p1s, p1s["plain_ms"], shape="[8, 128] u32",
+        large_shape="[65536, 1024] u32",
+        large_ms=p1l["p1_ms"], large_plain_ms=p1l["plain_ms"],
+        large_bound_ms=p1l["bound_ms"], host_us=host["p1_wrapper"],
+        plain_host_us=host["p1_plain"])
     add("pack_ell_t", "pack_t.cu", "scripts/probe_pack.py:49", 0,
         pp["packT"]["ms"], pp["packT"]["plain_ms"], pp["packT"], None,
         shape="2,000,000 x 128 ids (64 valid), V'=29,523")
@@ -4392,6 +4475,14 @@ def phase_probes(torch, bp, args) -> dict:
     add("bucketed_keys_t", "bucketed_t.cu",
         "scripts/probe_scorer_variants.py:198", v3["max_abs_err"], v3["ms"],
         v3["plain_ms"], v3, None,
+        shape="2,000,000 rows of ~119 ids, B=1024, bucket 8",
+        gather_in_turns_ms=rows["v0_current"]["ms"],
+        decode_only_ms=vs["decode_only_ms"],
+        long_check_long_rows=lc["long_rows_counted"])
+    # timing only: the keys are not the function's and are not compared
+    add("bucketed_keys_t_decode_only", "bucketed_t_decode_only.cu",
+        "scripts/probe_scorer_variants.py:198", None, vs["decode_only_ms"],
+        v3["plain_ms"], v3, None, timing_only=True, shipped_ms=v3["ms"],
         shape="2,000,000 rows of ~119 ids, B=1024, bucket 8")
     for v in ("operand_only", "fragments_only"):
         # timing only: the keys are not the function's and are not compared
@@ -4402,6 +4493,10 @@ def phase_probes(torch, bp, args) -> dict:
             shape="262,144 rows of 768 ids, B=32, bucket 8")
     i8 = r["int8"]
     fields = {
+        "bitpack_scores": {"launch_host_us": host["s2_launch"],
+                           "launch_host_us_uncached":
+                           host["s2_legacy_launch"],
+                           "wrapper_host_us": host["s2_wrapper"]},
         "pack_ell": {"probe_2m_ms": pp["pack"]["ms"],
                      "probe_2m_plain_ms": pp["pack"]["plain_ms"],
                      "probe_2m_bound_ms": pp["pack"]["bound_ms"]},

@@ -2,9 +2,10 @@
 (``vsearch_tpu_torch/ops/probes.py``): the plain twins of P1, P2 and P5
 against the JAX package's own functions for the same work (its Pallas
 kernels in interpret mode; the TPU probe scripts themselves claim the TPU
-at import and are not imported), each probe's ``main`` end to end at a
-tiny size on the CPU with its JSON keys, and the kernels on the card
-(``cuda``, skipped here)."""
+at import and are not imported), P5's launch geometry and the shared
+launch path (``bitpack._launch`` over a fake library), each probe's
+``main`` end to end at a tiny size on the CPU with its JSON keys, and the
+kernels on the card (``cuda``, skipped here)."""
 import json
 
 import numpy as np
@@ -155,6 +156,163 @@ def test_timing_variants_twin_is_the_function(rng, packed):
         probes.plane_variant("bucketed_plane", words, qT, cols.shape[0])
 
 
+# -- P5's launch geometry and the shared launch path, without a card --------
+@pytest.mark.parametrize("bucket", [1, 2, 4, 8])
+@pytest.mark.parametrize("b", [1, 32, 45, 1024])
+def test_keys_t_geometry(bucket, b):
+    """One CTA per 256 rows (4 a 1024-row block) whatever the bucket and
+    the batch: no query axis; the lists of ``KEYS_T_CAP`` ids a row and
+    the rows' state in dynamic shared memory, two CTAs an SM."""
+    n_pad, w = 2_000_896, 1024
+    g = probes.keys_t_geometry(n_pad, bucket, b, w)
+    assert g.grid == n_pad // 256 == 4 * (n_pad // tb.ROW_BLOCK)
+    assert g.tiles == -(-b // 32) and g.queries == 32 and g.warps == 8
+    assert g.cap == probes.KEYS_T_CAP == 192
+    assert g.smem == 192 * 256 * 2 + 3 * 4 * 256 == 101_376
+    assert 2 * (g.smem + 1024) <= 233_472  # the H100's shared memory an SM
+    assert g.c_args() == (192, n_pad // 256, 101_376)
+
+
+@pytest.mark.parametrize("n_pad,bucket,b,w", [
+    (1000, 8, 32, 128),         # padded rows not a multiple of 1024
+    (0, 8, 32, 128),            # no rows
+    (2048, 16, 32, 128),        # the block tier's bucket: not taken
+    (2048, 3, 32, 128),
+    (2048, 8, 32, 2056),        # a vocabulary past 65,536 ids
+    (2048, 8, 32, 12),          # words not in whole groups of 8
+    (2048, 8, -1, 128)])
+def test_keys_t_geometry_refuses(n_pad, bucket, b, w):
+    with pytest.raises(ValueError, match="keys_t_geometry"):
+        probes.keys_t_geometry(n_pad, bucket, b, w)
+
+
+@pytest.mark.parametrize("kernel,fn", [
+    ("bucketed_t", probes.bucket_keys_t),
+    ("bucketed_t_decode_only", probes.bucket_keys_t_decode_only)])
+def test_keys_t_wrappers_pass_the_geometry(monkeypatch, kernel, fn):
+    """What P5 and its variant hand their C entry points, without a card:
+    the arguments match the ctypes signature, the geometry is
+    ``keys_t_geometry``'s and the state is the device's."""
+    from vsearch_tpu_torch.ops import cuda_build
+
+    got = {}
+    monkeypatch.setattr(probes, "_uses_plain", lambda *a: False)
+    monkeypatch.setattr(tb, "_launch", lambda n, out, *args:
+                        got.update(n=n, args=args) or out)
+    monkeypatch.setattr(probes, "_KEYS_T_STATE", {})
+    w, n_pad, b = 256, 3072, 45
+    words_t = torch.zeros((w, n_pad), dtype=torch.int32)
+    keys = fn(words_t, torch.zeros((w * 32, b), dtype=torch.bfloat16),
+              3000, 4)
+    assert keys.shape == (n_pad // 4, b) and got["n"] == kernel
+    args = got["args"]
+    assert len(args) + 1 == len(cuda_build._SIGNATURES[kernel][1])
+    assert args[3] == probes._KEYS_T_STATE[None].data_ptr()
+    assert args[4:10] == (3000, n_pad, w, b, 64, 4)
+    assert args[10:] == probes.keys_t_geometry(n_pad, 4, b, w).c_args()
+
+
+class _FakeFn:
+    """A C function of a fake kernel library: counts how often its
+    signature is set and how often it is called."""
+
+    def __init__(self):
+        object.__setattr__(self, "typed", 0)
+        object.__setattr__(self, "calls", [])
+
+    def __setattr__(self, name, value):
+        if name == "argtypes":
+            object.__setattr__(self, "typed", self.typed + 1)
+        object.__setattr__(self, name, value)
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+class _FakeLib:
+    def __init__(self):
+        self.lookups = 0
+        self.fn = _FakeFn()
+
+    def __getattr__(self, name):
+        if name.startswith("vs_"):
+            self.lookups += 1
+            return self.fn
+        raise AttributeError(name)
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """``bitpack._launch`` over a fake library of P1 on CPU tensors: the
+    current device and stream stubbed (-1 is a CPU tensor's index), and
+    each device guard that ``_launch`` enters recorded."""
+    from vsearch_tpu_torch.ops import cuda_build
+
+    lib = _FakeLib()
+    monkeypatch.setattr(cuda_build, "_libs", {"bitcast_rows": lib})
+    monkeypatch.setattr(cuda_build, "_fns", {})
+    monkeypatch.setattr(cuda_build, "build_all",
+                        lambda *a, **k: pytest.fail("built a library"))
+    monkeypatch.setattr(tb, "_raw_stream", lambda index: 1234 + index)
+    guards = []
+
+    class Guard:
+        def __init__(self, index):
+            guards.append(index)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    return lib, guards
+
+
+def test_launch_resolves_a_kernel_once(monkeypatch, fake_launch):
+    """A kernel's C function is looked up and typed once for many calls,
+    each call passes the current stream's raw handle, enters no device
+    guard on the current device, and counts once."""
+    lib, guards = fake_launch
+    monkeypatch.setattr(tb, "_current_device", lambda: -1)
+    out = torch.empty(4)
+    before = tb.LAUNCHES["bitcast_rows"]
+    for i in range(50):
+        assert tb._launch("bitcast_rows", out, i, 2, 3, 4) is out
+    assert lib.lookups == 1 and lib.fn.typed == 1
+    assert lib.fn.calls == [(i, 2, 3, 4, 1233) for i in range(50)]
+    assert tb.LAUNCHES["bitcast_rows"] == before + 50
+    assert guards == []
+
+
+def test_launch_guards_another_device(monkeypatch, fake_launch):
+    """A tensor on another device than the current one (a mesh shard on
+    ``cuda:i``) is launched inside a guard of its own device, on its
+    device's stream, and still counts once a call."""
+    lib, guards = fake_launch
+    monkeypatch.setattr(tb, "_current_device", lambda: 3)
+    out = torch.empty(4)
+    before = tb.LAUNCHES["bitcast_rows"]
+    for _ in range(3):
+        tb._launch("bitcast_rows", out, 1, 2, 3, 4)
+    assert guards == [-1, -1, -1]
+    assert lib.lookups == 1 and lib.fn.typed == 1
+    assert [c[-1] for c in lib.fn.calls] == [1233] * 3
+    assert tb.LAUNCHES["bitcast_rows"] == before + 3
+
+
+def test_launch_raises_on_a_failed_launch(monkeypatch, fake_launch):
+    lib, _ = fake_launch
+    monkeypatch.setattr(tb, "_current_device", lambda: -1)
+    monkeypatch.setattr(_FakeFn, "__call__", lambda self, *a: 9)
+    before = tb.LAUNCHES["bitcast_rows"]
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        tb._launch("bitcast_rows", torch.empty(1), 1, 2, 3, 4)
+    assert tb.LAUNCHES["bitcast_rows"] == before
+
+
 # -- each probe end to end, tiny, on the CPU ---------------------------------
 TINY = {
     "probe_bitcast_layout": ([], ["layout", "interleaved_A", "blocked_B",
@@ -163,8 +321,9 @@ TINY = {
                    ["packT", "pack", "words_t_equals_words_T"]),
     "probe_scorer_variants": (
         ["--rows", "1500", "--b", "4", "--dense-rows", "1024",
-         "--check-rows", "256"],
-        ["small_check", "rows", "v3_equals_v0", "plane_split"]),
+         "--check-rows", "256", "--long-rows", "1024"],
+        ["small_check", "rows", "v3_equals_v0", "plane_split", "v3_split",
+         "v3_long_rows", "long_check"]),
     "probe_int8_scorer": (["--rows", "2048", "--b", "4"],
                           ["bf16_b16_ms", "int8_b16_ms", "int8_b32_tfs",
                            "cand_recall_c100", "cand_recall_c400"]),
@@ -176,6 +335,8 @@ TINY = {
                            "--b-scale", "512"],
                           ["b1024_bkt16_qps", "b2048_bkt32_sweep_s",
                            "b1024_bkt32_recall"]),
+    "probe_launch_cost": (["--calls", "400", "--large", "64,1024"],
+                          ["host_us_a_call", "calls", "s2_shape", "p1"]),
     "bitpack_regret_probe": (["--sizes", "1500,3000", "--b", "4"],
                              ["rows", "b", "k"]),
     "probe_alpha_sweep": (["--rows", "3000", "--b", "4", "--c-list",
@@ -216,7 +377,7 @@ def test_probe_main_on_the_cpu(name, tmp_path, capsys):
     flags = [v for k, v in _flat(res) if k.endswith(
         ("bit_identical", "bit_identical_dyadic", "_equals_words_T",
          "decoded_within", "matches_resident", "fused_within_atol",
-         "topk_int_matches", "v3_equals_v0", "ok"))]
+         "topk_int_matches", "v3_equals_v0", "equals_gather", "ok"))]
     assert all(flags), res
     # a CPU run times nothing on the device (bounds are computed)
     assert all(v is None for k, v in _flat(res)
@@ -244,9 +405,15 @@ def dev():
 
 
 @pytest.mark.cuda
-def test_bitcast_kernel(dev):
-    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, 128), dtype=torch.int32,
-                      device=dev)
+@pytest.mark.parametrize("s,l,offset", [(8, 128, 0), (4099, 1030, 0),
+                                        (4096, 1024, 0), (300, 128, 1)])
+def test_bitcast_kernel(dev, s, l, offset):
+    """P1 bit for bit: the probe's shape, a ragged one (rows off 16
+    bytes, a masked tail), a large aligned one (16-byte loads) and one
+    that starts off 16 bytes (``offset`` words into its buffer)."""
+    buf = torch.randint(-2 ** 31, 2 ** 31 - 1, (s * l + offset,),
+                        dtype=torch.int32, device=dev)
+    x = buf[offset:].view(s, l)
     before = tb.LAUNCHES["bitcast_rows"]
     got = probes.bitcast_rows(x)
     torch.cuda.synchronize()
@@ -265,10 +432,19 @@ def test_pack_t_kernel(dev, rng):
     assert torch.equal(got, tb.pack_bits(c, z, 5000).T)
 
 
+@pytest.fixture(scope="module")
+def long_rows(rng):
+    """3,000 rows (ragged: 3,072 padded) of 0-600 distinct ids over V =
+    5,000, most of them longer than P5's lists (``KEYS_T_CAP``)."""
+    cols, nnz = distinct_ell(rng, 3000, 5000, 600)
+    return cols, np.minimum(nnz, 600)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 32, 45])
-def test_keys_t_kernel(dev, rng, b):
-    cols, nnz = distinct_ell(rng, 3000, 5000, 128)
+@pytest.mark.parametrize("bucket", [1, 2, 4, 8])
+@pytest.mark.parametrize("b", [1, 32, 45, 1024])
+def test_keys_t_kernel(dev, rng, long_rows, b, bucket):
+    cols, nnz = long_rows
     c, z = torch.from_numpy(cols).to(dev), torch.from_numpy(nnz).to(dev)
     words = tb.pack_bits(c, z, 5000)
     words_t = probes.pack_bits_t(c, z, 5000)
@@ -277,12 +453,17 @@ def test_keys_t_kernel(dev, rng, b):
                           .astype(np.float32)).to(dev)
     dy[5000:] = 0
     dyT = dy.to(torch.bfloat16)
-    assert torch.equal(probes.bucket_keys_t(words_t, dyT, 3000),
-                       probes.bucket_keys_t_plain(words_t, dyT, 3000))
+    assert torch.equal(probes.bucket_keys_t(words_t, dyT, 3000, bucket),
+                       probes.bucket_keys_t_plain(words_t, dyT, 3000,
+                                                  bucket))
     qT = torch.rand((vp, b), device=dev).to(torch.bfloat16)
+    before = probes.keys_t_long_rows(dev)
+    got = probes.bucket_keys_t(words_t, qT, 3000, bucket)
+    # every row past the lists' capacity took the long path, once
+    assert probes.keys_t_long_rows(dev) - before == int(
+        (nnz > probes.KEYS_T_CAP).sum())
     # the gather form's order of summation: equal keys for any weights
-    assert torch.equal(probes.bucket_keys_t(words_t, qT, 3000),
-                       tb.bucket_keys(words, qT, 3000))
+    assert torch.equal(got, tb.bucket_keys(words, qT, 3000, bucket))
 
 
 @pytest.mark.cuda

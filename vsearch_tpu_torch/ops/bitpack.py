@@ -55,6 +55,7 @@ LAUNCHES: Dict[str, int] = {"pack": 0, "scores": 0, "bucketed": 0,
                             "bucketed_plane": 0,
                             # the probe kernels (ops/probes.py)
                             "bitcast_rows": 0, "pack_t": 0, "bucketed_t": 0,
+                            "bucketed_t_decode_only": 0,
                             "plane_operand_only": 0,
                             "plane_fragments_only": 0}
 
@@ -99,14 +100,16 @@ def _uses_plain(name: str, *inputs: Tuple[torch.Tensor, torch.dtype]
     For CUDA inputs, check what the kernel takes and return False; raise
     for any other device, a device mismatch, a dtype or a layout the
     kernel does not take."""
-    dev = inputs[0][0].device
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
+    first = inputs[0][0]
+    if not first.is_cuda:
+        if first.device.type == "cpu":
+            return True
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    dev = first.get_device()
     for t, dtype in inputs:
-        if t.device != dev:
-            raise ValueError(f"{name}: inputs on {t.device} and {dev}")
+        if t.get_device() != dev:
+            raise ValueError(f"{name}: inputs on {t.device} and "
+                             f"{first.device}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
@@ -114,12 +117,28 @@ def _uses_plain(name: str, *inputs: Tuple[torch.Tensor, torch.dtype]
     return False
 
 
+# The current device's index, and the current stream of a device index as
+# a raw handle without building a ``torch.cuda.Stream`` (where this build
+# of PyTorch offers them; both read the same state as the public calls)
+_current_device = (getattr(torch._C, "_cuda_getDevice", None)
+                   or torch.cuda.current_device)
+_raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
+               or (lambda index: torch.cuda.current_stream(index)
+                   .cuda_stream))
+
+
 def _launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
     """Launch kernel ``name`` on the current stream of ``out``'s device,
-    raise if the launch failed, and count it."""
-    with torch.cuda.device(out.device):
-        fn = cuda_build.kernel_fn(name)
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    raise if the launch failed, and count it. A device guard is entered
+    only when ``out`` lies on another device than the current one (the
+    mesh paths' shards)."""
+    fn = cuda_build.kernel_fn(name)
+    dev = out.get_device()
+    if dev == _current_device():
+        err = fn(*args, _raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, _raw_stream(dev))
     if err:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: "
                            f"cudaError {err}")

@@ -28,6 +28,7 @@ SOURCES = {"pack": "pack.cu", "scores": "scores.cu",
            # the probe kernels (ops/probes.py; vsearch_tpu_torch/scripts)
            "bitcast_rows": "probe_bitcast.cu", "pack_t": "pack_t.cu",
            "bucketed_t": "bucketed_t.cu",
+           "bucketed_t_decode_only": "bucketed_t_decode_only.cu",
            "plane_operand_only": "plane_operand_only.cu",
            "plane_fragments_only": "plane_fragments_only.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,6 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# each kernel's C function, looked up and typed once (``kernel_fn``)
+_fns: Dict[str, object] = {}
 # wall seconds and compiler output of the last build
 last_build: Dict[str, object] = {}
 
@@ -61,9 +64,13 @@ _SIGNATURES = {
     "bitcast_rows": ("vs_bitcast_rows", [_P, _P, _L, _I, _P]),
     # (cols, nnz, words_t, n, n_pad, nnz_pad, v, num_words)
     "pack_t": ("vs_pack_ell_t", [_P, _P, _P, _L, _L, _I, _I, _I, _P]),
-    # (words_t, qT, keys, num_rows, n_pad, num_words, b, b_pad, kb)
-    "bucketed_t": ("vs_bucketed_keys_t", [_P, _P, _P, _L, _L] + [_I] * 4
-                   + [_P]),
+    # (words_t, qT, keys, state, num_rows, n_pad, num_words, b, b_pad,
+    # bucket, cap, grid_x, smem), the last three from
+    # probes.keys_t_geometry
+    "bucketed_t": ("vs_bucketed_keys_t", [_P, _P, _P, _P, _L, _L]
+                   + [_I] * 7 + [_P]),
+    "bucketed_t_decode_only": ("vs_bucketed_keys_t_decode_only",
+                               [_P, _P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
     # the arguments of "bucketed_plane"
     "plane_operand_only": ("vs_plane_operand_only",
                            [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
@@ -134,24 +141,28 @@ def build_all(verbose: bool = False, force: bool = False) -> float:
 
 def kernel_fn(name: str):
     """The C entry point of kernel ``name`` (building the libraries first
-    if needed), with its ctypes signature set."""
-    lib = _libs.get(name)
-    if lib is None:
-        build_all()
-        lib = ctypes.CDLL(_lib_path(name))
-        _libs[name] = lib
-    sym, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    if needed), with its ctypes signature set. It is looked up and typed
+    at the first call and cached: every launch of the port asks for it."""
+    fn = _fns.get(name)
+    if fn is None:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(_lib_path(name))
+            _libs[name] = lib
+        sym, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 
 def occupancy(name: str) -> int:
-    """CTAs of kernel ``name`` (#2-#4 in either form, and the plane
-    form's timing variants) that one SM of the current device holds at
-    once, as the CUDA runtime works them out from the kernel's registers
-    and shared memory."""
+    """CTAs of kernel ``name`` (#2-#4 in either form, P5 at bucket 8 and
+    ``probes.KEYS_T_CAP``, and the timing variants) that one SM of the
+    current device holds at once, as the CUDA runtime works them out from
+    the kernel's registers and shared memory."""
     kernel_fn(name)  # builds and loads the library
     fn = getattr(_libs[name], _SIGNATURES[name][0] + "_occupancy")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]

@@ -79,6 +79,25 @@ def time_ms(fn: Callable, dev: torch.device, iters: int,
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fns: Dict[str, Callable], dev: torch.device, rounds: int,
+             iters: int) -> Dict[str, object]:
+    """Device ms a call of each of ``fns``, in turns after a warm-up of
+    all: the median of ``rounds`` rounds of ``iters`` calls each
+    (``name``) and every round (``name_rounds``), so that the clocks'
+    ramp and drift fall on every function alike. None on the CPU."""
+    for fn in fns.values():
+        fn()
+    times: Dict[str, list] = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(time_ms(fn, dev, iters, warm=False))
+    out: Dict[str, object] = {}
+    for name, ts in times.items():
+        out[name] = None if ts[0] is None else sorted(ts)[len(ts) // 2]
+        out[f"{name}_rounds"] = ts
+    return out
+
+
 def wall_s(fn: Callable, dev: torch.device
            ) -> Tuple[Optional[float], object]:
     """(host seconds, result) of one call of ``fn`` that ends in a
