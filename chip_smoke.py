@@ -163,7 +163,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      its wrapper (``recorded_kernel_calls``), and after each probe every
      shape at which it first called a kernel (P1, P2 and P5 of
      ``ops/probes.py``, #1-#4 in either form) is held against the plain
-     version on the same inputs (``hold_recorded_calls``).
+     version on the same inputs (``hold_recorded_calls``);
+ 17. the port's bench (``python -m vsearch_tpu_torch.bench``, the
+     counterpart of ``bench.py``) in this process at its defaults, its
+     JSON line logged, after its resident section over 8,192 of its
+     passages on the card and on the CPU (the same ids). Launch counts
+     are zeroed before each and read after it, every launch recorded and
+     every shape at which it called a kernel held against the plain
+     version; #1, #3 and #4 must launch, the four recalls reach 0.99 and
+     the over-card index (21,015,324 rows) take the block tier.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -296,6 +304,13 @@ PROBE_RUNS = (  # (key of the result, probe, arguments)
     ("embed", "probe_embed_mfu", []),
     ("serve", "probe_serve_load", ["--duration", "3", "--phases", "1x1,8x1"]),
 )
+# phase 17: the port's bench (vsearch_tpu_torch.bench) at its defaults; its
+# resident section first at this many passages on the card and on the CPU
+BENCH_CHECK_PASSAGES = 8192
+BENCH_RECALL_MIN = 0.99  # the first stage's recall gate (PERF.md section 2)
+# the resident section's scores, card against CPU: the same bf16 queries
+# over the same 0/1 rows, summed in f32 in another order
+BENCH_RTOL = 1e-5
 
 # the launch counter (bitpack.LAUNCHES) of each kernel of the kernels line
 COUNTERS = {"pack_ell": "pack", "bitpack_scores": "scores",
@@ -983,6 +998,13 @@ def main() -> int:
         e["launches"] += p16["launches"][COUNTERS[e["name"]]]
         e.update(p16["fields"].get(e["name"], {}))
     kernels += p16["entries"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 17: the port's bench on the card ------------------------------
+    launch_17 = phase_bench(torch, bp, args)
+    for e in kernels:  # the launches of the bench's main path
+        e["launches"] += launch_17[COUNTERS[e["name"]]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -4509,6 +4531,106 @@ def phase_probes(torch, bp, args) -> dict:
                                i8["int8_b16_plain_ms"]}}
     log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "entries": entries, "fields": fields}
+
+
+def bench_resident_check(torch, args) -> None:
+    """Phase 17 (a): the bench's resident section over
+    ``BENCH_CHECK_PASSAGES`` of its passages on the card (kernels #1 and
+    #2) and on the CPU (their plain versions, ``search_mode="bitpack"``):
+    the same ids, scores within ``BENCH_RTOL``."""
+    from vsearch_tpu_torch import bench
+    from vsearch_tpu_torch.index import BoTIndex
+    from vsearch_tpu_torch.ops.ell import ELLMatrix
+    from vsearch_tpu_torch.scripts import common
+
+    tok, _ = bench.get_bench_tokenizer()
+    corpus = bench.make_corpus(BENCH_CHECK_PASSAGES, seed=args.seed)
+    _, cols, nnz = bench.build_section(tok, corpus, 32, chunks=1, passes=1)
+    v = tok.vocab_size - bench.SHIFT
+    q = common.make_queries(256, v, args.seed + 1, torch.device(DEVICE))
+    got = {}
+    for where, dev, mode in (("card", DEVICE, "auto"),
+                             ("CPU", "cpu", "bitpack")):
+        index = BoTIndex(search_mode=mode, device=dev)
+        index.set_ell(ELLMatrix.from_arrays(cols, nnz, None, v, True,
+                                            device=dev))
+        t0 = time.perf_counter()
+        got[where] = bench.resident_section(index, q.to(dev), 128, K, cols)
+        log(f"  (a) resident section, {BENCH_CHECK_PASSAGES} passages on "
+            f"the {where} ({time.perf_counter() - t0:.2f} s): "
+            f"{got[where]['search_mode']}, selection "
+            f"{got[where]['selection']}, recall "
+            f"{got[where]['search_recall_vs_exact']!r}")
+    card, cpu = got["card"], got["CPU"]
+    same = np.array_equal(card["ids"], cpu["ids"])
+    require(card["search_mode"] == "bitpack" and (same or same_topk(
+        cpu["ids"], cpu["scores"], card["ids"], card["scores"],
+        BENCH_RTOL)), "the bench's resident section: card and CPU differ")
+    log(f"  (a) card == CPU: "
+        f"{'the same ids' if same else 'ids equal but for ties'}, scores "
+        f"within {BENCH_RTOL} (largest gap "
+        f"{float(np.abs(card['scores'] - cpu['scores']).max())!r})")
+
+
+def phase_bench(torch, bp, args) -> dict:
+    """Phase 17: the port's bench (``vsearch_tpu_torch.bench``, the
+    counterpart of ``bench.py``) on the card, inside the recorder: (a)
+    ``bench_resident_check``, then ``bench.main`` at its defaults in this
+    process (its JSON line logged). Launch counts are zeroed before each
+    and read after it; every launch must have been recorded, and every
+    shape at which the two called a kernel is held against its plain
+    version on the same inputs. #1, #3 and #4 must have launched in the
+    bench, its four recalls reach ``BENCH_RECALL_MIN`` (alpha at C =
+    1,536), its over-card index take the block tier, and every value be
+    finite. Returns the bench's launches."""
+    from vsearch_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    log("phase 17: the port's bench on the card (python -m "
+        "vsearch_tpu_torch.bench)")
+    where = {"part": "(a)"}
+    with recorded_kernel_calls(where) as rec:
+        torch.cuda.synchronize()
+        bp.reset_launch_counts()
+        bench_resident_check(torch, args)
+        torch.cuda.synchronize()
+        launch_a = dict(bp.LAUNCHES)
+        where["part"] = "bench.main"
+        bp.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = captured(bench.main, ["--device", DEVICE, "--seed",
+                                    str(args.seed)])
+        torch.cuda.synchronize()
+        bench_s = time.perf_counter() - t0
+        launches = dict(bp.LAUNCHES)
+    log(f"  bench.main took {bench_s:.1f} s; launches {launches}; (a)'s "
+        f"{launch_a}")
+    check_recorded_launches(17, rec, {c: n + launch_a[c]
+                                      for c, n in launches.items()})
+    t0 = time.perf_counter()
+    hold_recorded_calls(torch, DEVICE, rec, 17)
+    log(f"  holds {time.perf_counter() - t0:.1f} s")
+    require(all(launches[c] for c in ("pack", "bucketed", "int8_bucketed")),
+            f"the bench skipped #1, #3 or #4: {launches}")
+    recalls = {key: out[key] for key in (
+        "search_recall_vs_exact", "scale_search_recall",
+        "alpha_scale_recall", "oversize_recall_vs_exact")}
+    require(all(r is not None and r >= BENCH_RECALL_MIN
+                for r in recalls.values()),
+            f"the bench's recalls {recalls}, below {BENCH_RECALL_MIN}")
+    require(out["alpha_rerank_candidates"] == bench.ALPHA_C
+            and out["oversize_tier"] == "block"
+            and out["search_mode"] == "bitpack",
+            f"the bench's alpha C {out['alpha_rerank_candidates']}, tier "
+            f"{out['oversize_tier']}, search mode {out['search_mode']}")
+    bad = [k for k, x in out.items()
+           if x is None or (isinstance(x, float) and not np.isfinite(x))]
+    require(not bad, f"the bench's values not finite: {bad}")
+    log(f"  held: recalls {recalls} >= {BENCH_RECALL_MIN}; over-card tier "
+        f"{out['oversize_tier']} ({out['oversize_selection']}); every "
+        f"value finite")
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def free_port() -> int:

@@ -57,6 +57,7 @@ def test_import_with_jax_blocked():
         " 'vsearch_tpu_torch.examples.synthetic_vocab',\n"
         " 'vsearch_tpu_torch.examples.quick_start',\n"
         " 'vsearch_tpu_torch.examples.train_demo',\n"
+        " 'vsearch_tpu_torch.bench',\n"
         " 'vsearch_tpu_torch.ops.probes'} | {\n"
         " 'vsearch_tpu_torch.scripts.' + p for p in (\n"
         " 'probe_bitcast_layout', 'probe_pack', 'probe_scorer_variants',\n"
@@ -122,6 +123,24 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamedBitpackSearcher(np.zeros((4, 8), np.int32),
                                 np.ones(4, np.int32), 300)
+
+
+def test_bench_refuses_without_cuda():
+    """``python -m vsearch_tpu_torch.bench`` (``--device cuda`` by
+    default) on a machine without CUDA prints ``bench.py``'s
+    ``bench_error`` line and exits 2."""
+    import json
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    out = subprocess.run([sys.executable, "-m", "vsearch_tpu_torch.bench",
+                          "--num-passages", "16"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2, out.stderr
+    line = json.loads(out.stdout)
+    assert line["metric"] == "bench_error" and line["value"] == 0.0
 
 
 def test_every_kernel_has_a_counter_and_a_plain_twin():

@@ -1,8 +1,11 @@
-"""The synthetic word list and 30,522-entry WordPiece vocabulary of the
-repo's benchmark (the port's own copy of ``bench.py``'s ``_BASE_WORDS``
-and ``build_wordpiece_vocab``): plain Python, so the quick start and the
-convergence demo need no download."""
+"""The synthetic word list, 30,522-entry WordPiece vocabulary and corpus of
+the repo's benchmark (the port's own copy of ``bench.py``'s
+``_BASE_WORDS``, ``build_wordpiece_vocab`` and ``make_corpus``): plain
+Python and numpy, so the quick start, the convergence demo, the serve
+probe and the port's bench need no download."""
 from __future__ import annotations
+
+import numpy as np
 
 # words of the synthetic passages and queries
 BASE_WORDS = (
@@ -48,3 +51,15 @@ def build_wordpiece_vocab():
             vocab[w] = len(vocab)
         i += 1
     return vocab
+
+
+def make_corpus(n: int, words_per_passage: int = 80, seed: int = 0):
+    """``bench.py``'s synthetic passages: Zipf(1) draws over its word list
+    and 25,000 synthetic words."""
+    rng = np.random.default_rng(seed)
+    vocab = np.array(list(BASE_WORDS) + [f"word{i:05d}"
+                                         for i in range(25_000)])
+    probs = 1.0 / np.arange(1, len(vocab) + 1)
+    idx = rng.choice(len(vocab), size=(n, words_per_passage),
+                     p=probs / probs.sum())
+    return [" ".join(row) for row in vocab[idx]]

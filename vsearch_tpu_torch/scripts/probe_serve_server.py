@@ -19,22 +19,8 @@ import sys
 import threading
 import time
 
-import numpy as np
-
 from ..cli.common import add_device_arg
-from ..examples.synthetic_vocab import BASE_WORDS, build_wordpiece_vocab
-
-
-def make_corpus(n: int, words_per_passage: int = 80, seed: int = 0):
-    """``bench.py``'s synthetic passages: Zipf(1) draws over its word list
-    and 25,000 synthetic words."""
-    rng = np.random.default_rng(seed)
-    vocab = np.array(list(BASE_WORDS) + [f"word{i:05d}"
-                                         for i in range(25_000)])
-    probs = 1.0 / np.arange(1, len(vocab) + 1)
-    idx = rng.choice(len(vocab), size=(n, words_per_passage),
-                     p=probs / probs.sum())
-    return [" ".join(row) for row in vocab[idx]]
+from ..examples.synthetic_vocab import build_wordpiece_vocab, make_corpus
 
 
 def add_model_args(ap) -> None:
