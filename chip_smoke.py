@@ -330,6 +330,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def stage_times(retriever) -> dict:
+    """The stages of a retriever's last call (``query_embed``,
+    ``first_stage``, ``rerank``), without the spans under them."""
+    return {k: t for k, t in retriever.last_timings.items() if "/" not in k}
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError("check failed: " + msg)
@@ -686,7 +692,7 @@ def main() -> int:
             res = retriever.retrieve(queries[i * B:(i + 1) * B], k=K,
                                      rerank=True)
             results.append(res)
-            stages.append(dict(retriever.last_timings))
+            stages.append(stage_times(retriever))
         launches = dict(bp.LAUNCHES)
         total = sum(sum(s.values()) for s in stages)
         log(f"phase {label}: {index.ell.shape[0]} rows "
@@ -1186,7 +1192,7 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
     for i in range(args.batches):
         results.append(retriever.retrieve(qtexts[i * B:(i + 1) * B], k=K,
                                           rerank=True, index=idx))
-        stages.append(dict(retriever.last_timings))
+        stages.append(stage_times(retriever))
     launch_block = dict(bp.LAUNCHES)
     for i, st in enumerate(stages):
         log(f"  batch {i}: " + ", ".join(
@@ -1535,7 +1541,7 @@ def dense_alpha(torch, bp, dev, args, retriever, queries, ptx, dyT
     for i in range(args.batches):
         results.append(retriever.retrieve(queries[i * B:(i + 1) * B], k=K,
                                           index=idx))
-        stages.append(dict(retriever.last_timings))
+        stages.append(stage_times(retriever))
     launches = dict(bp.LAUNCHES)
     for i, st in enumerate(stages):
         log(f"  batch {i}{' (packs the support)' if i == 0 else ''}: "
@@ -1726,7 +1732,7 @@ def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
         # request does
         results.append(retriever.retrieve(queries[i * B:(i + 1) * B], k=K,
                                           index=idx))
-        stages.append(dict(retriever.last_timings))
+        stages.append(stage_times(retriever))
     launch_alpha = dict(bp.LAUNCHES)
     for i, st in enumerate(stages):
         log(f"  batch {i}{' (packs the support)' if i == 0 else ''}: "
@@ -2329,7 +2335,7 @@ def phase_dpr(torch, dev, args, tok, texts, work: str) -> dict:
     for i in range(args.batches):
         results.append(dpr.retrieve(questions[i * B:(i + 1) * B], k=K,
                                     index=idx))
-        stages.append(dict(dpr.last_timings))
+        stages.append(stage_times(dpr))
     for i, st in enumerate(stages):
         log(f"  batch {i}: " + ", ".join(
             f"{k} {t * 1e3:.1f} ms" for k, t in st.items()))
@@ -2513,7 +2519,7 @@ def phase_crossmodal(torch, bp, dev, args, tok, words, ptx, work: str
     exact, stages = [], []
     for i in range(args.batches):
         exact.append(xm.retrieve(queries[i * B:(i + 1) * B], k=K))
-        stages.append(dict(xm.last_timings))
+        stages.append(stage_times(xm))
     total = sum(sum(st.values()) for st in stages)
     log(f"  text -> image ({n} images, exact): {B * args.batches / total:.2f}"
         " queries/s; " + "; ".join(
@@ -2567,7 +2573,7 @@ def phase_crossmodal(torch, bp, dev, args, tok, words, ptx, work: str
     proxy, stages = [], []
     for i in range(args.batches):
         proxy.append(xm.retrieve(queries[i * B:(i + 1) * B], k=K))
-        stages.append(dict(xm.last_timings))
+        stages.append(stage_times(xm))
     launches = dict(bp.LAUNCHES)
     # rows of 768 ids: kernel #3 runs in the plane form
     require(idx.bitproxy.form == "plane" and launches["pack"] == 1
@@ -3330,7 +3336,7 @@ def phase_mesh(torch, bp, dev, args, retriever, tok, words, texts, queries,
     one.selection = "auto"
     qs = queries[:B]
     base = retriever.retrieve(qs, k=K, rerank=True, index=one)
-    ms_base = dict(retriever.last_timings)
+    ms_base = stage_times(retriever)
     one.bitmat = None  # the sharded retriever packs its own shards
     gc.collect()
     torch.cuda.empty_cache()
@@ -3359,7 +3365,7 @@ def phase_mesh(torch, bp, dev, args, retriever, tok, words, texts, queries,
         f", {int((res.ids != base.ids).sum())} of {res.ids.size} ids "
         f"differ; stages sharded "
         + ", ".join(f"{k} {t * 1e3:.1f} ms"
-                    for k, t in retriever.last_timings.items())
+                    for k, t in stage_times(retriever).items())
         + "; one device " + ", ".join(f"{k} {t * 1e3:.1f} ms"
                                       for k, t in ms_base.items())
         + f"; launches {ld}; took {time.perf_counter() - t0:.1f} s")

@@ -84,7 +84,11 @@ def test_beta_search_matches_jax(pair, big_corpus, selection):
         b = t.retrieve(QUERIES, k=6, rerank=rerank)
         np.testing.assert_array_equal(b.ids, a.ids)
         np.testing.assert_allclose(b.scores, a.scores, **TOL)
-    assert set(t.last_timings) == {"query_embed", "first_stage", "rerank"}
+    stages = {"query_embed", "first_stage", "rerank"}
+    assert stages <= set(t.last_timings)
+    for key in set(t.last_timings) - stages:
+        head = key.split("/")[0]
+        assert "/" in key and (head in stages or head == "serve"), key
 
 
 @pytest.mark.parametrize("selection", ["exact", "bucketed"])

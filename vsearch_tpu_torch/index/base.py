@@ -18,6 +18,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.search import dense_topk_search
+from ..utils.profiling import TRACER
 
 logger = logging.getLogger(__name__)
 
@@ -91,7 +92,9 @@ def _on(device: torch.device, t: torch.Tensor) -> bool:
 
 
 def _results(ids: torch.Tensor, scores: torch.Tensor) -> SearchResults:
-    return SearchResults(ids.cpu().numpy(), scores.cpu().numpy())
+    """The search's closing copy to the host, a ``to_host`` span."""
+    with TRACER.span("to_host"):
+        return SearchResults(ids.cpu().numpy(), scores.cpu().numpy())
 
 
 class DenseIndex:

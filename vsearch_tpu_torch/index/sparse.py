@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.ell import ELLMatrix
+from ..utils.profiling import TRACER
 from .base import (DenseIndex, IndexType, SearchResults, _resolve_files,
                    _results)
 
@@ -572,21 +573,32 @@ class BoTIndex(SparseIndex):
             if self._mesh_kind == "block":
                 return self._mesh_blockwise_search(q, k)
             return self._mesh_bitpack_search(q, k)
-        tier = self._oversize_tier()
+        # spans (``utils.profiling.TRACER``) under the caller's: the
+        # tier's choice (``_budget`` reads the card's memory), the query
+        # operand, the kernels' launches; ``_results`` is ``to_host``
+        with TRACER.span("budget"):
+            tier = self._oversize_tier()
         if tier is not None:
-            q = self._query_tensor(q_embs, self.ell.num_cols)
+            with TRACER.span("query"):
+                q = self._query_tensor(q_embs, self.ell.num_cols)
             k = min(k, self.ell.shape[0])
             if tier == "block":
-                return _results(*self._block_search(q, k))
+                with TRACER.span("launch"):
+                    ids, scores = self._block_search(q, k)
+                return _results(ids, scores)
             return SearchResults(*self._get_streamer().search(q, k))
         if self._mesh_kind == "ell" or not self._use_bitpack():
             return super().search(q_embs, k, num_candidates=num_candidates)
         from ..ops.bitpack import bitpack_bucketed_topk, bitpack_topk_search
 
-        q = self._query_tensor(q_embs, self.ell.num_cols)
+        with TRACER.span("query"):
+            q = self._query_tensor(q_embs, self.ell.num_cols)
         k = min(k, self.ell.shape[0])
         if self.bitmat is None:
             self.build_bitpack()
-        if self._resolved_selection().startswith("bucketed"):
-            return _results(*bitpack_bucketed_topk(q, self.bitmat, k=k))
-        return _results(*bitpack_topk_search(q, self.bitmat, k=k))
+        with TRACER.span("launch"):
+            if self._resolved_selection().startswith("bucketed"):
+                ids, scores = bitpack_bucketed_topk(q, self.bitmat, k=k)
+            else:
+                ids, scores = bitpack_topk_search(q, self.bitmat, k=k)
+        return _results(ids, scores)

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops.activations import elu1p
 from ..ops.sparse import build_bow_mask, build_topk_mask
+from ..utils.profiling import TRACER
 from .bert import BertConfig, BertModel, init_bert_weights
 from .encoder_base import TextEncoderBase, build_module
 from .valid_vocab import VALID_TOKEN_IDS, valid_token_ids
@@ -160,7 +161,8 @@ class VDRTextEncoder(TextEncoderBase):
         else:
             fn = lambda ids, tt, m: self._masked_embed(ids, tt, m, topk)
         outs = self._run_batches(texts, batch_size, max_len, fn)
-        return torch.cat([o[:n] for o, n in outs]).cpu().numpy()
+        with TRACER.span("to_host"):
+            return torch.cat([o[:n] for o, n in outs]).cpu().numpy()
 
     def disentangle(self, text: str, topk: Optional[int] = None,
                     visual: bool = False, save_file: Optional[str] = None

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.profiling import TRACER
 from .bert import BertConfig, BertModel, init_bert_weights
 from .encoder_base import TextEncoderBase, build_module
 
@@ -76,4 +77,5 @@ class DPREncoder(TextEncoderBase):
         # runs its own device's replica
         outs = self._run_batches(texts, batch_size, max_len,
                                  lambda *t: self.module(*t))
-        return torch.cat([o[:n] for o, n in outs]).float().cpu().numpy()
+        with TRACER.span("to_host"):
+            return torch.cat([o[:n] for o, n in outs]).float().cpu().numpy()

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils.profiling import TRACER
 
 # ``pipeline_window``'s default in-flight window (the JAX package's)
 PIPELINE_DEPTH = 8
@@ -168,7 +169,11 @@ class TextEncoderBase:
         row order on the mesh's first device. No piece waits for another:
         the copies to the first device are the only cross-device work."""
         if self._mesh is None:
-            return fn(*(x.to(self.device) for x in t))
+            # a copy from pageable host memory waits for the stream: the
+            # previous batch's forward
+            with TRACER.span("upload"):
+                t = [x.to(self.device) for x in t]
+            return fn(*t)
         from ..parallel.mesh import shard_batch
 
         mesh, axis_name = self._mesh
@@ -218,15 +223,18 @@ class TextEncoderBase:
                      fn: Callable) -> List[Tuple[object, int]]:
         """``fn(ids, token_types, mask)`` on each batch of ``batch_size``
         texts (the last one padded with empty rows). Returns
-        ``(device output, real row count)`` per batch."""
+        ``(device output, real row count)`` per batch. Each batch is a
+        ``tokenize`` and a ``forward`` span (``utils.profiling.TRACER``)
+        under the caller's."""
         outs = []
         ctx = compute_context(self.module, compute_dtype(self.config))
         for start in range(0, len(texts), batch_size):
             chunk = texts[start: start + batch_size]
-            enc = self._pad_batch(self.encode(chunk, max_len=max_len),
-                                  batch_size)
-            t = [torch.from_numpy(enc[k]).long()
-                 for k in ("input_ids", "token_type_ids", "attention_mask")]
-            with ctx:
+            with TRACER.span("tokenize"):
+                enc = self._pad_batch(self.encode(chunk, max_len=max_len),
+                                      batch_size)
+                t = [torch.from_numpy(enc[k]).long() for k in
+                     ("input_ids", "token_type_ids", "attention_mask")]
+            with TRACER.span("forward"), ctx:
                 outs.append((self._forward(fn, t), len(chunk)))
         return outs

@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import elu1p
 from ..ops.sparse import build_bow_mask, build_topk_mask
+from ..utils.profiling import TRACER
 from .bert import BertConfig, BertModel, init_bert_weights
 from .encoder_base import TextEncoderBase, build_module
 
@@ -239,7 +240,8 @@ class VDREncoder(TextEncoderBase):
             fn = lambda ids, tt, m: self._masked_embed(ids, tt, m, topk,
                                                        activate_lexical)
         outs = self._run_batches(texts, batch_size, max_len, fn)
-        return torch.cat([o[:n] for o, n in outs]).cpu().numpy()
+        with TRACER.span("to_host"):
+            return torch.cat([o[:n] for o, n in outs]).cpu().numpy()
 
     @torch.no_grad()
     def embed_sparse(self, texts: Union[str, List[str]],
@@ -286,8 +288,9 @@ class VDREncoder(TextEncoderBase):
         if return_device:
             return (torch.cat([c for (c, _), _ in outs]),
                     torch.cat([v for (_, v), _ in outs]))
-        return (torch.cat([c[:n] for (c, _), n in outs]).cpu().numpy(),
-                torch.cat([v[:n] for (_, v), n in outs]).cpu().numpy())
+        with TRACER.span("to_host"):
+            return (torch.cat([c[:n] for (c, _), n in outs]).cpu().numpy(),
+                    torch.cat([v[:n] for (_, v), n in outs]).cpu().numpy())
 
     def disentangle(self, text: str, topk: int = 768, visual: bool = False,
                     save_file: Optional[str] = None) -> Dict[str, float]:

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 import random as pyrandom
-import time
 import unicodedata
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -25,6 +24,7 @@ from .biencoder import BiEncoder, BiEncoderConfig, join_corpus, takes_images
 from .eval.qa_utils import has_answer
 from .index import (BoTIndex, DenseIndex, IndexType, SearchResults,
                     SparseIndex)
+from .utils.profiling import TRACER
 
 
 @dataclasses.dataclass
@@ -42,9 +42,18 @@ class Retriever(BiEncoder):
         self.index = index
         self.index_type: Optional[IndexType] = (
             index.index_type if index is not None else None)
-        # host seconds of each stage of the last retrieve(); every stage
-        # ends in a device->host copy, so the clock covers device work
-        self.last_timings: Dict[str, float] = {}
+        self._timings: Dict[str, float] = {}
+
+    @property
+    def last_timings(self) -> Dict[str, float]:
+        """The call record (``utils.profiling.Tracer``) of the device call
+        that ran the last ``retrieve``: host seconds of each stage,
+        ``query_embed``, ``first_stage`` and, with the rerank, ``rerank``
+        (every stage ends in a device->host copy, so its clock covers its
+        device work), and of each span under them (``<stage>/<child>``,
+        repeated children summed); called through the serving layer's
+        coalescer, also ``serve/queue_wait``."""
+        return self._timings
 
     def to_mesh(self, mesh, axis_name: str = "dp"):
         """Serve over a device mesh: the index rows shard (per-shard top-k,
@@ -90,16 +99,17 @@ class Retriever(BiEncoder):
         if index is None:
             raise ValueError("no index attached: build_index or "
                              "load_index first, or pass index=")
-        t0 = time.perf_counter()
-        q_emb = self.process_query(queries, dropout, a,
-                                   batch_size=batch_size, rng=rng)
-        t1 = time.perf_counter()
-        results = index.search(q_emb, k=k)
-        t2 = time.perf_counter()
-        self.last_timings = {"query_embed": t1 - t0, "first_stage": t2 - t1}
-        if rerank and index.index_type == IndexType.BAG_OF_TOKEN:
-            results = self._beta_rerank(q_emb, results, index, batch_size)
-            self.last_timings["rerank"] = time.perf_counter() - t2
+        with TRACER.call("retrieve"):
+            with TRACER.span("query_embed"):
+                q_emb = self.process_query(queries, dropout, a,
+                                           batch_size=batch_size, rng=rng)
+            with TRACER.span("first_stage"):
+                results = index.search(q_emb, k=k)
+            if rerank and index.index_type == IndexType.BAG_OF_TOKEN:
+                with TRACER.span("rerank"):
+                    results = self._beta_rerank(q_emb, results, index,
+                                                batch_size)
+            self._timings = TRACER.record()
         return results
 
     def _beta_rerank(self, q_emb: np.ndarray, results: SearchResults,
@@ -111,27 +121,33 @@ class Retriever(BiEncoder):
         others (DPR, cross-modal text), as the JAX package does."""
         ret_ids = np.asarray(results.ids)  # [B, k]
         b, k = ret_ids.shape  # the index may have clamped k to its rows
-        uniq_ids, inverse = np.unique(ret_ids.reshape(-1),
-                                      return_inverse=True)
-        ret_texts = [_passage_embed_text(index.get_sample(int(i)))
-                     for i in uniq_ids]
-        # length-sort so each embed batch lands in the smallest length
-        # bucket; the inverse map composes the sort away
-        sort_perm = np.argsort([len(t.split()) for t in ret_texts],
-                               kind="stable")
-        ret_texts = [ret_texts[int(i)] for i in sort_perm]
-        inverse = np.argsort(sort_perm, kind="stable")[inverse]
+        with TRACER.span("fetch"):
+            uniq_ids, inverse = np.unique(ret_ids.reshape(-1),
+                                          return_inverse=True)
+            ret_texts = [_passage_embed_text(index.get_sample(int(i)))
+                         for i in uniq_ids]
+            # length-sort so each embed batch lands in the smallest length
+            # bucket; the inverse map composes the sort away
+            sort_perm = np.argsort([len(t.split()) for t in ret_texts],
+                                   kind="stable")
+            ret_texts = [ret_texts[int(i)] for i in sort_perm]
+            inverse = np.argsort(sort_perm, kind="stable")[inverse]
         q32 = np.ascontiguousarray(q_emb, dtype=np.float32)
+        # the encoder's tokenize / forward / to_host spans nest here
         if hasattr(self.encoder_p, "embed_sparse"):
             cols, vals = self.encoder_p.embed_sparse(
                 ret_texts, batch_size=batch_size, activate_lexical=True,
                 return_device=True)
-            rescored = _sparse_rerank_scores(cols, vals, inverse, b, k,
-                                             q32).cpu().numpy()
+            with TRACER.span("rescore"):
+                scores = _sparse_rerank_scores(cols, vals, inverse, b, k,
+                                               q32)
+            with TRACER.span("to_host"):
+                rescored = scores.cpu().numpy()
         else:  # dense passage embeddings, rescored on the host
             p_emb = self.encoder_p.embed(ret_texts, batch_size=batch_size)
-            rescored = np.einsum("bkv,bv->bk", p_emb[inverse].reshape(
-                b, k, -1).astype(np.float32), q32)
+            with TRACER.span("rescore"):
+                rescored = np.einsum("bkv,bv->bk", p_emb[inverse].reshape(
+                    b, k, -1).astype(np.float32), q32)
         order = np.argsort(-rescored, axis=1)
         return SearchResults(np.take_along_axis(ret_ids, order, axis=1),
                              np.take_along_axis(rescored, order, axis=1))
@@ -294,8 +310,12 @@ def _sparse_rerank_scores(cols: torch.Tensor, vals: torch.Tensor,
     ``inverse`` maps each (query, slot) to its candidate row. Sentinel
     columns (== V) hit the zero pad column of the query."""
     dev = cols.device
-    inv = torch.from_numpy(inverse.astype(np.int64).reshape(b, k)).to(dev)
-    q = torch.from_numpy(q32).to(dev)
+    # a copy from pageable host memory waits for the device's stream, so
+    # this is where the host waits for the candidates' embeds
+    with TRACER.span("upload"):
+        inv = torch.from_numpy(inverse.astype(np.int64).reshape(b, k)
+                               ).to(dev)
+        q = torch.from_numpy(q32).to(dev)
     v_dim = q.shape[1]
     qpad = F.pad(q, (0, 1))  # [b, V+1]
     c = cols[inv].long().clamp_max(v_dim)  # [b, k, kk]

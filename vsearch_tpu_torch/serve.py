@@ -20,6 +20,19 @@ Endpoints:
   POST /embed   {"texts": [...], "sparse": true}
   GET  /healthz
   GET  /stats
+
+``/stats`` is the operator's view of the process: the rolling step
+timers (``search``, ``embed``), the coalescer's counters, and ``spans``,
+the tracer's cumulative ``{"count", "total_s"}`` per span path
+(``utils.profiling.TRACER``). Each coalesced device call is a
+``serve/call`` span; ``serve/select`` is the dispatcher's drain and choice
+of the call's requests and their padding; ``serve/queue_wait`` counts real
+queries and sums each one's wait from its chunk's enqueue in ``submit`` to
+the start of the call that serves it (its ``total_s / count`` is the mean
+wait); below them the retriever's stages (``query_embed``,
+``first_stage``, ``rerank``) and their parts (``<stage>/<child>``). A span
+outside any call (an ``/embed``'s encoder spans) counts under its own
+name.
 """
 from __future__ import annotations
 
@@ -27,13 +40,14 @@ import json
 import logging
 import queue
 import threading
+import time
 from collections import defaultdict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 import numpy as np
 
-from .utils.profiling import StepTimer
+from .utils.profiling import TRACER, StepTimer
 
 logger = logging.getLogger(__name__)
 
@@ -132,7 +146,8 @@ class SearchCoalescer:
         # chunks instead of waiting out one huge call
         # string queries and precomputed embedding vectors cannot share
         # a device call (process_query branches on the element type), so
-        # the kind joins the group key
+        # the kind joins the group key. Each item carries its enqueue
+        # time, the start of its queue wait
         kind = "str" if isinstance(queries[0], str) else "vec"
         step = self._max_queries
         pending = []
@@ -143,7 +158,8 @@ class SearchCoalescer:
                 done = threading.Event()
                 slot: Dict[str, Any] = {}
                 self._q.put((queries[start: start + step], (k, kind),
-                             rerank, done, slot, tenant))
+                             rerank, done, slot, tenant,
+                             time.perf_counter_ns()))
                 pending.append((done, slot))
         for done, _ in pending:
             done.wait()
@@ -272,14 +288,21 @@ class SearchCoalescer:
             b *= 2
         return b
 
-    def _run_group(self, items, k: int, rerank: bool):
+    def _batch(self, items):
+        """The call's queries, padded to ``_bucket``, and the real count."""
         queries = [q for it in items for q in it[0]]
         n = len(queries)
-        pad = self._bucket(n) - n
-        padded = queries + [queries[-1]] * pad
-        # n_real tells the backend how many rows are real queries (the
-        # rest is power-of-two padding) so /stats doesn't count padding
-        ids, scores = self._search_fn(padded, k, rerank, n_real=n)
+        return queries + [queries[-1]] * (self._bucket(n) - n), n
+
+    def _run_group(self, items, k: int, rerank: bool, batch=None):
+        padded, n = batch or self._batch(items)
+        with TRACER.call("serve/call", n_real=n, batch=len(padded)) as call:
+            TRACER.add("serve/queue_wait",
+                       sum((call.t0 - it[6]) * len(it[0]) for it in items),
+                       count=n)
+            # n_real tells the backend how many rows are real queries (the
+            # rest is power-of-two padding) so /stats doesn't count padding
+            ids, scores = self._search_fn(padded, k, rerank, n_real=n)
         self.device_calls += 1
         row = 0
         for it in items:
@@ -294,25 +317,27 @@ class SearchCoalescer:
         while True:
             if not pending and not closing:
                 pending.append(self._q.get())
-            while True:  # drain everything already queued into the buffer
-                try:
-                    pending.append(self._q.get_nowait())
-                except queue.Empty:
-                    break
-            if any(it is None for it in pending):
-                # close(): nothing is enqueued after its sentinel, so the
-                # buffer now holds the last requests to answer
-                closing = True
-                pending = [it for it in pending if it is not None]
-            if not pending:
-                return
-            items = self._select(pending)
-            chosen = {id(it) for it in items}
-            pending = [it for it in pending if id(it) not in chosen]
+            with TRACER.span("serve/select"):
+                while True:  # drain everything already queued
+                    try:
+                        pending.append(self._q.get_nowait())
+                    except queue.Empty:
+                        break
+                if any(it is None for it in pending):
+                    # close(): nothing is enqueued after its sentinel, so
+                    # the buffer now holds the last requests to answer
+                    closing = True
+                    pending = [it for it in pending if it is not None]
+                if not pending:
+                    return
+                items = self._select(pending)
+                chosen = {id(it) for it in items}
+                pending = [it for it in pending if id(it) not in chosen]
+                batch = self._batch(items)
             (k, _kind), rerank = items[0][1], items[0][2]
             try:
                 try:
-                    self._run_group(items, k, rerank)
+                    self._run_group(items, k, rerank, batch)
                 except Exception:
                     if len(items) == 1:
                         raise
@@ -427,7 +452,8 @@ class RetrieverService:
 
     def stats(self) -> Dict[str, Any]:
         out = {"search": self.search_timer.summary(),
-               "embed": self.embed_timer.summary()}
+               "embed": self.embed_timer.summary(),
+               "spans": TRACER.summary()}
         if self._coalescer is not None:
             out["coalesced_device_calls"] = self._coalescer.device_calls
             leads = self._coalescer.tenant_leads

@@ -1,30 +1,188 @@
 """Profiling and step-time observability (counterpart of
 ``vsearch_tpu/utils/profiling.py``): a ``torch.profiler`` trace of a
-block, the card's memory counters, and the rolling step-time / throughput
-counter that the serving layer reports in ``/stats``.
+block, the card's memory counters, the rolling step-time / throughput
+counter that the serving layer reports in ``/stats``, and the tracer
+(``TRACER``) whose spans split each device call of the serving path.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import os
+import threading
 import time
 from collections import deque
-from typing import Deque, Dict, Optional
+from typing import Deque, Dict, List, Optional
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 logger = logging.getLogger(__name__)
+
+_perf_ns = time.perf_counter_ns
+
+
+class _Span:
+    """One open span; see ``Tracer``."""
+
+    __slots__ = ("_tracer", "_stack", "name", "path", "root", "call", "rec",
+                 "labels", "t0", "_rf")
+
+    def __init__(self, tracer: "Tracer", name: str, root: bool = False,
+                 labels: Optional[Dict] = None):
+        self._tracer = tracer
+        self.name = name
+        self.root = root
+        self.labels = labels
+
+    def __enter__(self) -> "_Span":
+        stack = self._stack = self._tracer._local.stack
+        if self.root:
+            self.path = self.name
+            self.call = next(self._tracer._ids)
+            self.rec: Optional[Dict[str, float]] = {}
+        elif stack:
+            parent = stack[-1]
+            self.path = (self.name if parent.root
+                         else f"{parent.path}/{self.name}")
+            self.call, self.rec = parent.call, parent.rec
+        else:
+            self.path, self.call, self.rec = self.name, None, None
+        stack.append(self)
+        # set while a torch.profiler records, whichever thread started it
+        # (``torch._C._autograd._profiler_enabled()`` reads False under
+        # the Kineto profiler)
+        if _autograd_profiler._is_profiler_enabled:
+            self._rf = torch.profiler.record_function(self._label())
+            self._rf.__enter__()
+        else:
+            self._rf = None
+        self.t0 = _perf_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dt = _perf_ns() - self.t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        self._stack.pop()
+        path, rec = self.path, self.rec
+        if rec is not None and not self.root:
+            rec[path] = rec.get(path, 0.0) + dt * 1e-9
+        tot = self._tracer.totals.get(path)
+        if tot is None:
+            tot = self._tracer.totals.setdefault(path, [0, 0])
+        tot[0] += 1
+        tot[1] += dt
+
+    def _label(self) -> str:
+        """The span's name in a profiler trace: its path, ``#`` and its
+        call's id, and a root's labels (the trace keeps no arguments of a
+        ``record_function``, so they go in the name)."""
+        if self.call is None:
+            return self.path
+        out = f"{self.path}#{self.call}"
+        if self.labels:
+            out += "".join(f" {k}={v}" for k, v in self.labels.items())
+        return out
+
+
+# ``Tracer.call`` inside a call already open: no new record
+_NO_CALL = contextlib.nullcontext()
+
+
+class _OpenSpans(threading.local):
+    """Each thread's stack of open spans, innermost last."""
+
+    def __init__(self):
+        self.stack: List[_Span] = []
+
+
+class Tracer:
+    """Spans on ``time.perf_counter_ns`` at the layer boundaries of the
+    serving path, and the call record of each device call.
+
+    ``call(name)`` opens the root span of a device call (the coalescer's
+    ``serve/call``, or ``Retriever.retrieve``'s ``retrieve`` when no call
+    is open on the thread; inside an open call it opens nothing). Every
+    ``span(name)`` nests under the thread's innermost open span, so the
+    encoder's ``tokenize`` lands under ``query_embed`` or ``rerank``,
+    whichever stage called it, and belongs to the call of its root. The
+    call's record maps each span's path below the root (``<stage>``,
+    ``<stage>/<child>``, ...) to its seconds, repeated spans summed; the
+    root itself is not in it. ``record()`` is the thread's open record.
+
+    ``totals`` holds, per path, the spans closed (or the count given to
+    ``add``) and their nanoseconds since the process started, including
+    spans outside any call (such as ``serve/select``, or an embed of
+    ``/embed``), under their own name. One dict update a span and no
+    lock: the serving path's spans all close on the dispatcher thread.
+
+    While a ``torch.profiler`` records, each span also enters a
+    ``record_function`` named ``<path>#<call id>`` (a root adds its
+    labels), so the spans lie in the profiler's trace on their thread
+    beside the kernels they launch. Otherwise no ``record_function`` is
+    entered: one costs ~12 µs even with no profiler.
+    """
+
+    def __init__(self):
+        self._local = _OpenSpans()
+        self._ids = itertools.count(1)
+        self.totals: Dict[str, List[int]] = {}
+
+    def call(self, name: str, **labels):
+        """The root span of a device call and its record, or nothing when
+        a call is open on this thread."""
+        stack = self._local.stack
+        if stack and stack[-1].rec is not None:
+            return _NO_CALL
+        return _Span(self, name, root=True, labels=labels)
+
+    def span(self, name: str) -> _Span:
+        return _Span(self, name)
+
+    def add(self, name: str, ns: int, count: int = 1) -> None:
+        """Enter ``ns`` nanoseconds measured elsewhere (``count`` of them,
+        summed) as a span ``name`` under the innermost open span."""
+        stack = self._local.stack
+        parent = stack[-1] if stack else None
+        path = (name if parent is None or parent.root
+                else f"{parent.path}/{name}")
+        if parent is not None and parent.rec is not None:
+            parent.rec[path] = parent.rec.get(path, 0.0) + ns * 1e-9
+        tot = self.totals.get(path)
+        if tot is None:
+            tot = self.totals.setdefault(path, [0, 0])
+        tot[0] += count
+        tot[1] += ns
+
+    def record(self) -> Dict[str, float]:
+        """The open call record of this thread ({} outside a call)."""
+        stack = self._local.stack
+        if stack and stack[-1].rec is not None:
+            return stack[-1].rec
+        return {}
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """{path: {"count", "total_s"}} of every path so far."""
+        return {path: {"count": c, "total_s": ns * 1e-9}
+                for path, (c, ns) in list(self.totals.items())}
+
+
+# the process's tracer: every span of the port goes here
+TRACER = Tracer()
 
 
 @contextlib.contextmanager
 def trace(log_dir: str, create_perfetto_link: bool = False, *,
           device="cuda"):
-    """Capture a ``torch.profiler`` trace of the enclosed block (host ops,
+    """Capture a ``torch.profiler`` trace of the enclosed block (host ops
+    of every thread, so a serving process's dispatcher and its spans too,
     and the card's kernels unless ``device="cpu"``) and write it to
     ``log_dir`` as a Chrome trace (``trace.json``, viewable in Perfetto).
     Yields the profiler, whose ``key_averages()`` give time by kernel.
     ``create_perfetto_link`` is accepted and unused: the file opens in
     Perfetto as it is."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ..device import resolve_device
@@ -32,7 +190,12 @@ def trace(log_dir: str, create_perfetto_link: bool = False, *,
     acts = [ProfilerActivity.CPU]
     if resolve_device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    try:
+        extra = {"experimental_config": torch._C._profiler
+                 ._ExperimentalConfig(profile_all_threads=True)}
+    except (AttributeError, TypeError):  # a PyTorch without the option
+        extra = {}
+    with profile(activities=acts, **extra) as prof:
         yield prof
         if ProfilerActivity.CUDA in acts:
             torch.cuda.synchronize()
@@ -46,8 +209,6 @@ def device_memory_stats() -> Dict[str, Dict[str, int]]:
     """Live, peak and total bytes of each CUDA device, from
     ``torch.cuda.memory_stats`` (the caching allocator's counters) and
     ``torch.cuda.mem_get_info``. Raises without CUDA."""
-    import torch
-
     from ..device import resolve_device
 
     resolve_device("cuda")
