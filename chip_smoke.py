@@ -173,6 +173,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      version; #1, #3 and #4 must launch, the four recalls reach 0.99 and
      the over-card index (21,015,324 rows) take the block tier.
 
+ 18. the granite trunk's Mamba-2 chunk scan (``ops/ssd.py``, kernel
+     ``ssd_chunk``) at granite-4.0-h-micro's widths (64 heads of 64,
+     d_state 128, a 4-tap conv, bf16) on 32 sequences of 32, 64, 128 and
+     256 positions, each call recorded at its wrapper and held against the
+     plain twin on the same inputs (``hold_recorded_calls``), timed beside
+     its bound and the twin. ``--only-ssd`` runs phases 1, 2 and 18 alone.
+
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -312,6 +319,16 @@ BENCH_RECALL_MIN = 0.99  # the first stage's recall gate (PERF.md section 2)
 # over the same 0/1 rows, summed in f32 in another order
 BENCH_RTOL = 1e-5
 
+# phase 18: the chunk scan's shapes (granite-4.0-h-micro's widths), the
+# sequences a call and their lengths (the rerank's length buckets)
+SSD_HEADS, SSD_D_HEAD, SSD_D_STATE = 64, 64, 128
+SSD_BATCH = 32
+SSD_LENGTHS = (32, 64, 128, 256)
+# the kernel against its twin: both compute in f32 from the same bf16 inputs
+# and round to bf16 once, so they differ by the f32 sums' order and at most
+# one bf16 step of the largest values
+SSD_TOL = 2.0 ** -8
+
 # the launch counter (bitpack.LAUNCHES) of each kernel of the kernels line
 COUNTERS = {"pack_ell": "pack", "bitpack_scores": "scores",
             "bucketed_keys": "bucketed",
@@ -323,7 +340,8 @@ COUNTERS = {"pack_ell": "pack", "bitpack_scores": "scores",
             "bucketed_keys_t": "bucketed_t",
             "bucketed_keys_t_decode_only": "bucketed_t_decode_only",
             "plane_operand_only": "plane_operand_only",
-            "plane_fragments_only": "plane_fragments_only"}
+            "plane_fragments_only": "plane_fragments_only",
+            "ssd_chunk": "ssd_chunk"}
 
 
 def log(msg: str) -> None:
@@ -607,6 +625,8 @@ def main() -> int:
     ap.add_argument("--demo-epochs", type=int, default=DEMO_EPOCHS)
     ap.add_argument("--probe-out", default=None,
                     help="a directory for phase 16's probes' JSON files")
+    ap.add_argument("--only-ssd", action="store_true",
+                    help="phases 1, 2 and 18 alone (the chunk scan)")
     args = ap.parse_args()
     # the run needs no network: a tokenizer named by a hub id must fail
     # here, not be fetched (read before ``transformers`` is imported)
@@ -645,6 +665,15 @@ def main() -> int:
             f"static shared memory {r['smem']} B")
     log(f"phase 2: built {len(cuda_build.SOURCES)} kernel libraries in "
         f"{build_s:.2f} s (parallel nvcc, sm_90a)")
+
+    if args.only_ssd:
+        kernels = phase_ssd(torch, dev)
+        log(smi)
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- phase 3: ragged small shapes -----------------------------------------
     kernel_checks_small(torch, bp, dev)
@@ -1011,6 +1040,9 @@ def main() -> int:
     launch_17 = phase_bench(torch, bp, args)
     for e in kernels:  # the launches of the bench's main path
         e["launches"] += launch_17[COUNTERS[e["name"]]]
+
+    # -- phase 18: the granite trunk's chunk scan -----------------------------
+    kernels += phase_ssd(torch, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -3858,7 +3890,7 @@ RECORDED = (("bitpack", "pack_bits"), ("bitpack", "score_bits"),
             ("bitpack", "bucket_keys"), ("bitpack", "int8_bucket_keys"),
             ("probes", "bitcast_rows"), ("probes", "pack_bits_t"),
             ("probes", "bucket_keys_t"), ("probes", "plane_variant"),
-            ("probes", "bucket_keys_t_decode_only"))
+            ("probes", "bucket_keys_t_decode_only"), ("ssd", "ssd_chunk"))
 # the wrappers of timing-only kernels: counted, never held (their keys
 # are not the function's)
 TIMING_ONLY = ("plane_variant", "bucket_keys_t_decode_only")
@@ -3881,14 +3913,15 @@ def call_counter(fname: str, a: dict) -> str:
             "int8_bucket_keys": "int8_bucketed",
             "bitcast_rows": "bitcast_rows", "pack_bits_t": "pack_t",
             "bucket_keys_t": "bucketed_t",
-            "bucket_keys_t_decode_only": "bucketed_t_decode_only"}[fname]
+            "bucket_keys_t_decode_only": "bucketed_t_decode_only",
+            "ssd_chunk": "ssd_chunk"}[fname]
 
 
 @contextlib.contextmanager
 def recorded_kernel_calls(where: dict):
     """Every kernel wrapper of ``RECORDED`` as the paths run inside call
     it on the card, wherever the port holds it by name (``ops.bitpack``,
-    ``ops.probes`` and each module that imported it): the calls by launch
+    ``ops.probes``, ``ops.ssd`` and each module that imported it): the calls by launch
     counter (``rec["calls"]``), and for the first call at each shape (its
     tensors' shapes and its other arguments) the arguments by name and
     the output (copies up to ``KEEP_BYTES``), under ``where["part"]`` at
@@ -3898,9 +3931,9 @@ def recorded_kernel_calls(where: dict):
     call."""
     import inspect
 
-    from vsearch_tpu_torch.ops import bitpack, probes
+    from vsearch_tpu_torch.ops import bitpack, probes, ssd
 
-    mods = {"bitpack": bitpack, "probes": probes}
+    mods = {"bitpack": bitpack, "probes": probes, "ssd": ssd}
     rec = {"first": {}, "seen": set(), "calls": {}, "orig": {}}
     wrappers = {}
 
@@ -3998,6 +4031,17 @@ def hold_call(torch, dev, rng, orig: dict, fname: str, a: dict, out
 
     shapes = {k: list(v.shape) if hasattr(v, "shape") else v
               for k, v in a.items()}
+    if fname == "ssd_chunk":
+        from vsearch_tpu_torch.ops import ssd
+
+        want = ssd.ssd_chunk_plain(a["proj"], a["conv_w"], a["conv_b"],
+                                   a["dt_bias"], a["a_log"], a["d"],
+                                   a["heads"], a["d_head"], a["d_state"])
+        err = float((out.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        require(err <= SSD_TOL * scale, fail(
+            f"differs from plain by {err} (tolerance {SSD_TOL} of {scale})"))
+        return f"max_abs_err {err} against plain (largest value {scale})"
     if fname == "bitcast_rows":
         want = pk.bitcast_rows_plain(a["x"])
         require(torch.equal(out.view(torch.int16), want.view(torch.int16)),
@@ -4637,6 +4681,99 @@ def phase_bench(torch, bp, args) -> dict:
         f"value finite")
     log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def ssd_inputs(torch, dev, gen, b: int, length: int):
+    """Inputs of one chunk-scan call at granite-4.0-h-micro's widths, bf16:
+    ``proj`` N(0, 1) (an RMSNormed activation through N(0, 0.02) weights
+    of 2,048 inputs reads ~0.9), the conv and Mamba-2's step, decay and
+    skip parameters in their published initial ranges."""
+    inner = SSD_HEADS * SSD_D_HEAD
+    conv_dim = inner + 2 * SSD_D_STATE
+    f = dict(device=dev, dtype=torch.float32)
+    proj = torch.randn(b, length, inner + conv_dim + SSD_HEADS,
+                       generator=gen, **f)
+    conv_w = torch.rand(conv_dim, 4, generator=gen, **f) - 0.5
+    conv_b = torch.rand(conv_dim, generator=gen, **f) - 0.5
+    dt = torch.exp(torch.rand(SSD_HEADS, generator=gen, **f)
+                   * (np.log(0.1) - np.log(0.001)) + np.log(0.001))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    a_log = torch.log(1 + 15 * torch.rand(SSD_HEADS, generator=gen, **f))
+    d = torch.ones(SSD_HEADS, **f)
+    return [t.to(torch.bfloat16) for t in
+            (proj, conv_w, conv_b, dt_bias, a_log, d)]
+
+
+def ssd_bound_ms(b: int, length: int) -> tuple:
+    """The chunk scan's least milliseconds on the H100 over ``b`` sequences
+    of ``length`` positions (``benchmark/flops_granite.py``'s count), the
+    largest of: xBC and dt read once and y written once (bf16) at
+    3.35 TB/s; the causal pairs' products (C.B shared, then each head's,
+    on bf16 inputs) at the bf16 tensor-core rate; the conv's taps and the
+    skip at the f32 rate; and which bounds it."""
+    inner = SSD_HEADS * SSD_D_HEAD
+    conv_dim = inner + 2 * SSD_D_STATE
+    pairs = length * (length + 1) // 2
+    pair_ops = b * pairs * (2 * SSD_D_STATE + 2 * inner)
+    other_ops = b * (length * 8 * conv_dim + length * 2 * inner)
+    nbytes = b * length * 2 * (conv_dim + SSD_HEADS + inner)
+    t = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+         "tensor-core work": pair_ops / H100_BF16_FLOPS * 1e3,
+         "f32 work": other_ops / H100_F32_FLOPS * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by
+
+
+def phase_ssd(torch, dev) -> list:
+    """Phase 18: the chunk scan on ``SSD_BATCH`` sequences of each of
+    ``SSD_LENGTHS``: every call recorded and held against the twin, then
+    timed (the kernel by CUDA events over 20 launches, the twin over 2)
+    beside its bound. Returns the kernels line's entries."""
+    from vsearch_tpu_torch.ops import bitpack as bp
+    from vsearch_tpu_torch.ops import ssd
+
+    t_phase = time.perf_counter()
+    log("phase 18: the granite trunk's Mamba-2 chunk scan at "
+        f"granite-4.0-h-micro's widths ({SSD_HEADS} heads of {SSD_D_HEAD}, "
+        f"d_state {SSD_D_STATE}), {SSD_BATCH} sequences a call")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    where = {"part": "phase 18"}
+    before = bp.LAUNCHES["ssd_chunk"]
+    rows = []
+    with recorded_kernel_calls(where) as rec:
+        for length in SSD_LENGTHS:
+            args = ssd_inputs(torch, dev, gen, SSD_BATCH, length)
+            where["part"] = f"phase 18, L={length}"
+            ssd.ssd_chunk(*args, SSD_HEADS, SSD_D_HEAD, SSD_D_STATE)
+            torch.cuda.synchronize()
+            rows.append((length, args))
+    launched = bp.LAUNCHES["ssd_chunk"] - before
+    check_recorded_launches(18, rec, {"ssd_chunk": launched})
+    require(launched == len(SSD_LENGTHS),
+            f"phase 18: {launched} chunk-scan launches")
+    hold_recorded_calls(torch, dev, rec, 18)
+    entries = []
+    for length, args in rows:
+        ms = time_ms(lambda: ssd.ssd_chunk(*args, SSD_HEADS, SSD_D_HEAD,
+                                           SSD_D_STATE), 20)
+        plain_ms = time_ms(lambda: ssd.ssd_chunk_plain(
+            *args, SSD_HEADS, SSD_D_HEAD, SSD_D_STATE), 2)
+        bound, by = ssd_bound_ms(SSD_BATCH, length)
+        entries.append({
+            "name": "ssd_chunk", "route": "cuda",
+            "source": "vsearch_tpu_torch/ops/csrc/ssd_chunk.cu",
+            "replaces": "none (the granite trunk's Mamba-2 mixer)",
+            "shape": f"{SSD_BATCH} x {length} positions",
+            "launches": launched, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None})
+        log(f"  ssd_chunk, {SSD_BATCH} x {length}: {ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by}, "
+            f"{100 * bound / ms:.1f}% of it)")
+        del args
+    rows.clear()
+    torch.cuda.empty_cache()
+    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 def free_port() -> int:

@@ -58,7 +58,9 @@ def test_import_with_jax_blocked():
         " 'vsearch_tpu_torch.examples.quick_start',\n"
         " 'vsearch_tpu_torch.examples.train_demo',\n"
         " 'vsearch_tpu_torch.bench',\n"
-        " 'vsearch_tpu_torch.ops.probes'} | {\n"
+        " 'vsearch_tpu_torch.ops.probes',\n"
+        " 'vsearch_tpu_torch.models.granite_hybrid',\n"
+        " 'vsearch_tpu_torch.ops.ssd'} | {\n"
         " 'vsearch_tpu_torch.scripts.' + p for p in (\n"
         " 'probe_bitcast_layout', 'probe_pack', 'probe_scorer_variants',\n"
         " 'probe_int8_scorer', 'probe_block_parts', 'probe_block_b2048',\n"
@@ -82,10 +84,21 @@ def test_import_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+# the benchmark's modules of the granite cell, which run beside the port
+GRANITE_BENCHMARK = [
+    "benchmark/reference/granite_vdr.py", "benchmark/checks_granite.py",
+    "benchmark/control_granite.py", "benchmark/corpus_granite.py",
+    "benchmark/flops_granite.py", "benchmark/vocab_granite.py",
+    "benchmark/weights_granite.py",
+    "benchmark/generators/open_loop_search_granite.py",
+    "benchmark/metrics/ssd_chunk_roofline.py",
+    "benchmark/metrics/mfu.granite.py", "benchmark/metrics/rerank_pad_share.py"]
+
+
 @pytest.mark.parametrize("path", sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
     for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py"))
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py"] + GRANITE_BENCHMARK)
 def test_no_jax_import_lines(path):
     pat = re.compile(
         r"^\s*(import|from)\s+(jax|flax|optax|orbax|vsearch_tpu)\b")
@@ -151,11 +164,11 @@ def test_every_kernel_has_a_counter_and_a_plain_twin():
     launches each of ``probes.PLANE_VARIANTS``), has a counter in
     ``LAUNCHES``, and its wrapper ``f`` runs ``f_plain``, a function of
     the same module: a kernel cannot land without its twin."""
-    from vsearch_tpu_torch.ops import bitpack, cuda_build, probes
+    from vsearch_tpu_torch.ops import bitpack, cuda_build, probes, ssd
 
     launchers = ("_launch", "_plane_keys")
     launched = {}
-    for mod in (bitpack, probes):
+    for mod in (bitpack, probes, ssd):
         with open(mod.__file__) as f:
             tree = ast.parse(f.read())
         for fn in tree.body:

@@ -68,9 +68,11 @@ def build_module(module_cls, config, init: Callable, seed: int,
 
 
 def compute_dtype(config) -> torch.dtype:
-    """The dtype an encoder computes in: its BERT's ``dtype`` (f32 for
-    encoders without one, such as the image encoder)."""
-    return getattr(getattr(config, "bert", None), "dtype", torch.float32)
+    """The dtype an encoder computes in: its trunk's ``dtype`` (BERT's, or
+    a VDR encoder's granite trunk's; f32 for encoders without one, such as
+    the image encoder)."""
+    trunk = getattr(config, "trunk_config", getattr(config, "bert", None))
+    return getattr(trunk, "dtype", torch.float32)
 
 
 def compute_context(module: nn.Module, dtype: torch.dtype):
@@ -225,7 +227,10 @@ class TextEncoderBase:
         texts (the last one padded with empty rows). Returns
         ``(device output, real row count)`` per batch. Each batch is a
         ``tokenize`` and a ``forward`` span (``utils.profiling.TRACER``)
-        under the caller's."""
+        under the caller's, and the forward counts its batch's real
+        tokens (``forward/tokens``) and the padding it runs besides
+        (``forward/pad_tokens``: the rest of its rows' length bucket, and
+        its empty rows) in the call record's counts."""
         outs = []
         ctx = compute_context(self.module, compute_dtype(self.config))
         for start in range(0, len(texts), batch_size):
@@ -235,6 +240,9 @@ class TextEncoderBase:
                                       batch_size)
                 t = [torch.from_numpy(enc[k]).long() for k in
                      ("input_ids", "token_type_ids", "attention_mask")]
+                real = int(enc["attention_mask"].sum())
             with TRACER.span("forward"), ctx:
+                TRACER.count("tokens", real)
+                TRACER.count("pad_tokens", enc["attention_mask"].size - real)
                 outs.append((self._forward(fn, t), len(chunk)))
         return outs

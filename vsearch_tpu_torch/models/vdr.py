@@ -3,7 +3,11 @@
 
 BERT last hidden states -> LayerNorm (eps 1e-5) -> projection onto the
 vocab-shifted tied word embeddings -> masked max-pool over the sequence
--> elu1p -> optional L2 norm, then top-k / bag-of-words masking. As in
+-> elu1p -> optional L2 norm, then top-k / bag-of-words masking. The
+trunk may instead be granite-4.0-h (``trunk="granite_hybrid"``,
+``models/granite_hybrid.py``), whose head is the same over its own tied
+embeddings, the projection divided by its ``logits_scaling`` as Granite's
+LM head divides its logits. As in
 the JAX package, padding positions are masked out of the pooling unless
 ``compat_pad_pooling`` asks for the reference's pooling over them, and
 the max branch pools raw logits and applies elu1p once after the pool
@@ -24,6 +28,10 @@ from ..ops.sparse import build_bow_mask, build_topk_mask
 from ..utils.profiling import TRACER
 from .bert import BertConfig, BertModel, init_bert_weights
 from .encoder_base import TextEncoderBase, build_module
+from .granite_hybrid import (GraniteHybridConfig, GraniteHybridModel,
+                             init_granite_weights)
+
+GRANITE = "granite_hybrid"
 
 # elements of one [B*L, chunk] f32 logits block in the chunked max-pool
 _POOL_BLOCK_ELEMS = 1 << 27
@@ -41,27 +49,47 @@ class VDREncoderConfig:
     compat_pad_pooling: bool = False
     bert: BertConfig = dataclasses.field(default_factory=BertConfig)
     type: str = "vdr"
+    granite: Optional[GraniteHybridConfig] = None  # the trunk's, if granite
+
+    @property
+    def trunk(self) -> str:
+        return "bert" if self.granite is None else GRANITE
+
+    @property
+    def trunk_config(self):
+        return self.bert if self.granite is None else self.granite
 
     @property
     def vocab_size(self) -> int:
-        return self.bert.vocab_size
+        return self.trunk_config.vocab_size
 
     @property
     def out_dim(self) -> int:
-        return self.bert.vocab_size - self.shift_vocab_num
+        return self.vocab_size - self.shift_vocab_num
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "VDREncoderConfig":
-        bert_keys = {f.name for f in dataclasses.fields(BertConfig)}
-        own_keys = {f.name for f in dataclasses.fields(cls)} - {"bert"}
-        bert = BertConfig(**{k: v for k, v in d.items() if k in bert_keys})
+        own_keys = {f.name for f in dataclasses.fields(cls)} - {"bert",
+                                                                "granite"}
         own = {k: v for k, v in d.items() if k in own_keys}
+        trunk = d.get("trunk", "bert")
+        if trunk == GRANITE:
+            keys = {f.name for f in dataclasses.fields(GraniteHybridConfig)}
+            return cls(granite=GraniteHybridConfig(
+                **{k: v for k, v in d.items() if k in keys}), **own)
+        if trunk != "bert":
+            raise ValueError(f"unknown VDR trunk {trunk!r}")
+        bert_keys = {f.name for f in dataclasses.fields(BertConfig)}
+        bert = BertConfig(**{k: v for k, v in d.items() if k in bert_keys})
         return cls(bert=bert, **own)
 
 
 class VDRModule(nn.Module):
     """tokens -> [B, V - shift] f32 vocabulary embedding. Parameter names
-    follow the reference's torch VDR encoder (``bert_model.*`` + ``ln``).
+    follow the reference's torch VDR encoder (``bert_model.*`` + ``ln``);
+    a granite trunk is ``model.*`` (HF's ``GraniteMoeHybridForCausalLM``
+    layout, its LM head tied to ``model.embed_tokens``) + ``ln``, and
+    takes no token types or mask (it is causal, padding on the right).
 
     With ``tp_devices`` (``encoder_base.set_tp``; the mesh's tp line, this
     module's device first) the trunk runs once, here, and the head's
@@ -75,8 +103,11 @@ class VDRModule(nn.Module):
     def __init__(self, config: VDREncoderConfig):
         super().__init__()
         self.config = config
-        self.bert_model = BertModel(config.bert)
-        self.ln = nn.LayerNorm(config.bert.hidden_size, eps=1e-5)
+        if config.granite is not None:
+            self.model = GraniteHybridModel(config.granite)
+        else:
+            self.bert_model = BertModel(config.bert)
+        self.ln = nn.LayerNorm(config.trunk_config.hidden_size, eps=1e-5)
         # checkpoint the max-pool's vocab chunks under autograd (remat)
         self.remat = False
         self.tp_devices = None  # the head's vocabulary split (set_tp)
@@ -85,11 +116,17 @@ class VDRModule(nn.Module):
         cfg = self.config
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        h = self.ln(self.bert_model(input_ids, token_type_ids,
-                                    attention_mask))
-        # tied head: the shifted word embeddings [V', H]
-        proj = self.bert_model.embeddings.word_embeddings.weight[
-            cfg.shift_vocab_num:]
+        if cfg.granite is not None:
+            # dividing the head's input divides its logits (exactly, for
+            # granite's power-of-two scaling)
+            h = self.ln(self.model(input_ids)) / cfg.granite.logits_scaling
+            proj = self.model.embed_tokens.weight[cfg.shift_vocab_num:]
+        else:
+            h = self.ln(self.bert_model(input_ids, token_type_ids,
+                                        attention_mask))
+            # tied head: the shifted word embeddings [V', H]
+            proj = self.bert_model.embeddings.word_embeddings.weight[
+                cfg.shift_vocab_num:]
         if cfg.compat_pad_pooling:
             # pool every position up to the batch's longest row, as the
             # reference's padding=True batches do
@@ -193,8 +230,10 @@ class VDREncoder(TextEncoderBase):
             from ..tokenization import get_tokenizer
             tokenizer = get_tokenizer(config.model_id)
         super().__init__(config, tokenizer, device)
-        self.module = build_module(VDRModule, config, init_bert_weights,
-                                   seed, self.device, config.bert.dtype,
+        init = (init_granite_weights if config.granite is not None
+                else init_bert_weights)
+        self.module = build_module(VDRModule, config, init, seed,
+                                   self.device, config.trunk_config.dtype,
                                    state_dict)
 
     # -- per-batch pipelines -------------------------------------------------

@@ -57,7 +57,9 @@ LAUNCHES: Dict[str, int] = {"pack": 0, "scores": 0, "bucketed": 0,
                             "bitcast_rows": 0, "pack_t": 0, "bucketed_t": 0,
                             "bucketed_t_decode_only": 0,
                             "plane_operand_only": 0,
-                            "plane_fragments_only": 0}
+                            "plane_fragments_only": 0,
+                            # the granite trunk's chunk scan (ops/ssd.py)
+                            "ssd_chunk": 0}
 
 
 def reset_launch_counts() -> None:

@@ -30,7 +30,9 @@ SOURCES = {"pack": "pack.cu", "scores": "scores.cu",
            "bucketed_t": "bucketed_t.cu",
            "bucketed_t_decode_only": "bucketed_t_decode_only.cu",
            "plane_operand_only": "plane_operand_only.cu",
-           "plane_fragments_only": "plane_fragments_only.cu"}
+           "plane_fragments_only": "plane_fragments_only.cu",
+           # the granite trunk's Mamba-2 chunk scan (ops/ssd.py)
+           "ssd_chunk": "ssd_chunk.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -76,6 +78,10 @@ _SIGNATURES = {
                            [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
     "plane_fragments_only": ("vs_plane_fragments_only",
                              [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
+    # (proj, stride, x_off, dt_off, conv_w, conv_b, dt_bias, A_log, D, out,
+    # batch, len, heads)
+    "ssd_chunk": ("vs_ssd_chunk", [_P, _L, _I, _I] + [_P] * 6
+                  + [_I] * 3 + [_P]),
 }
 
 

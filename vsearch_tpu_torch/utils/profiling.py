@@ -23,6 +23,19 @@ logger = logging.getLogger(__name__)
 _perf_ns = time.perf_counter_ns
 
 
+class _Record(dict):
+    """A device call's record (``Tracer``): seconds a span path, and in
+    ``counts`` the numbers ``Tracer.count`` entered a path (such as each
+    encoder forward's real and padding tokens). A reader of the seconds
+    sees a plain dict."""
+
+    __slots__ = ("counts",)
+
+    def __init__(self):
+        super().__init__()
+        self.counts: Dict[str, int] = {}
+
+
 class _Span:
     """One open span; see ``Tracer``."""
 
@@ -41,7 +54,7 @@ class _Span:
         if self.root:
             self.path = self.name
             self.call = next(self._tracer._ids)
-            self.rec: Optional[Dict[str, float]] = {}
+            self.rec: Optional[Dict[str, float]] = _Record()
         elif stack:
             parent = stack[-1]
             self.path = (self.name if parent.root
@@ -111,6 +124,8 @@ class Tracer:
     call's record maps each span's path below the root (``<stage>``,
     ``<stage>/<child>``, ...) to its seconds, repeated spans summed; the
     root itself is not in it. ``record()`` is the thread's open record.
+    Its ``counts`` hold what ``count(name, n)`` entered, summed by path
+    (``<span path>/<name>``), apart from the seconds.
 
     ``totals`` holds, per path, the spans closed (or the count given to
     ``add``) and their nanoseconds since the process started, including
@@ -155,6 +170,17 @@ class Tracer:
             tot = self.totals.setdefault(path, [0, 0])
         tot[0] += count
         tot[1] += ns
+
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the open call's count ``name`` under the innermost
+        open span (nothing outside a call)."""
+        stack = self._local.stack
+        parent = stack[-1] if stack else None
+        if parent is None or parent.rec is None:
+            return
+        path = name if parent.root else f"{parent.path}/{name}"
+        counts = parent.rec.counts
+        counts[path] = counts.get(path, 0) + n
 
     def record(self) -> Dict[str, float]:
         """The open call record of this thread ({} outside a call)."""
