@@ -179,6 +179,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      256 positions, each call recorded at its wrapper and held against the
      plain twin on the same inputs (``hold_recorded_calls``), timed beside
      its bound and the twin. ``--only-ssd`` runs phases 1, 2 and 18 alone.
+ 19. kernel #4 at the block tier's shapes: one 262,144-row block of Zipf
+     passages (``synth_bot_rows``), bucket 16, B = 32, 224, 256 and 1,024
+     (``INT8_BATCHES``): each call's keys equal the plain version's bit
+     for bit, in one launch that counts one read of the block's words in
+     the open call record (``int8_word_passes``); then timed beside its
+     bound (``score_bounds`` at that B: the words, the int8 operand and
+     the keys at 3.35 TB/s) and the plain version. ``--only-int8`` runs
+     phases 1, 2 and 19 alone.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -329,6 +337,10 @@ SSD_LENGTHS = (32, 64, 128, 256)
 # one bf16 step of the largest values
 SSD_TOL = 2.0 ** -8
 
+# phase 19: kernel #4's batches at the block tier's block (wiki21m's calls
+# carry ~200 queries, padded to 224 or 256; P6 runs 1,024)
+INT8_BATCHES = (32, 224, 256, 1024)
+
 # the launch counter (bitpack.LAUNCHES) of each kernel of the kernels line
 COUNTERS = {"pack_ell": "pack", "bitpack_scores": "scores",
             "bucketed_keys": "bucketed",
@@ -398,19 +410,25 @@ def geometry_line(ptx: dict, name: str, geom, ms: float, nbytes: int
                   ) -> str:
     """Launch geometry, resources and achieved rate of one call of ``ms``
     of kernel #2 (``scores``, geometry from ``score_geometry``), #3
-    (``bucketed``) or #4 (``int8_bucketed``, both from ``fold_geometry``);
+    (``bucketed``, from ``fold_geometry``) or #4 (``int8_bucketed``, from
+    ``int8_fold_geometry``);
     the warps an SM holds are the CUDA runtime's occupancy figure."""
     from vsearch_tpu_torch.ops import cuda_build
 
     fn = f"{name}_kernel"
-    r = ptx.get(fn, {})
+    r, occ_of = ptx.get(fn, {}), ""
+    if hasattr(geom, "lane_queries"):  # #4 is a template: its instantiation
+        tag = f"{fn}ILi{geom.lane_queries}ELb{int(geom.passes > 1)}E"
+        r = next((v for k, v in ptx.items() if tag in k), {})
+        occ_of = " of its 16-queries-a-lane form"
     ctas = cuda_build.occupancy(name)
     return (f"{fn}: grid {geom.grid} CTAs of {geom.warps} warps = "
             f"{geom.grid[0] * geom.grid[1]} CTAs, {geom.total_warps} warps; "
             f"{r.get('registers', 0)} registers, spills "
             f"{r.get('spill_stores', 0)}/{r.get('spill_loads', 0)} B "
             f"(stores/loads), shared memory {r.get('smem', 0)} B a CTA; "
-            f"{ctas * geom.warps} warps resident an SM (runtime occupancy); "
+            f"{ctas * geom.warps} warps resident an SM (runtime occupancy"
+            f"{occ_of}); "
             f"{nbytes / ms / 1e6:.1f} GB/s")
 
 
@@ -627,6 +645,8 @@ def main() -> int:
                     help="a directory for phase 16's probes' JSON files")
     ap.add_argument("--only-ssd", action="store_true",
                     help="phases 1, 2 and 18 alone (the chunk scan)")
+    ap.add_argument("--only-int8", action="store_true",
+                    help="phases 1, 2 and 19 alone (kernel #4)")
     args = ap.parse_args()
     # the run needs no network: a tokenizer named by a hub id must fail
     # here, not be fetched (read before ``transformers`` is imported)
@@ -666,8 +686,11 @@ def main() -> int:
     log(f"phase 2: built {len(cuda_build.SOURCES)} kernel libraries in "
         f"{build_s:.2f} s (parallel nvcc, sm_90a)")
 
-    if args.only_ssd:
-        kernels = phase_ssd(torch, dev)
+    if args.only_ssd or args.only_int8:
+        kernels = (phase_ssd(torch, dev) if args.only_ssd else
+                   [{"name": "int8_bucketed_keys", "route": "cuda",
+                     "source": "vsearch_tpu_torch/ops/csrc/int8_bucketed.cu",
+                     "block_b16": phase_int8(torch, bp, dev, ptx)}])
         log(smi)
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -1043,6 +1066,12 @@ def main() -> int:
 
     # -- phase 18: the granite trunk's chunk scan -----------------------------
     kernels += phase_ssd(torch, dev)
+
+    # -- phase 19: kernel #4 at the block tier's shapes ----------------------
+    block_b16 = phase_int8(torch, bp, dev, ptx)
+    for e in kernels:
+        if e["name"] == "int8_bucketed_keys":
+            e["block_b16"] = block_b16
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1274,7 +1303,7 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
         require(rec >= 0.99, f"block tier recall {rec}")
     profile_by_kernel(torch, "block-tier first stage",
                       lambda: idx.search(q_embs[0], k=K),
-                      {"kernel #4": r"^int8_bucketed_kernel"})
+                      {"kernel #4": r"\bint8_bucketed_kernel\b"})
     profile_by_kernel(torch, "exact blockwise sweep",
                       lambda: exact_sweep(q_embs[0]),
                       {"kernel #2": r"^scores_kernel", "pack": r"pack_kernel",
@@ -1326,7 +1355,8 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
     log(f"  kernel #4 on one {rows}-row block, B={B}: bit-identical to "
         f"plain, {out['ms']:.3f} ms")
     log("    " + geometry_line(
-        ptx, "int8_bucketed", bp.fold_geometry(n_pad, bp.BLOCK_BUCKET, B, w),
+        ptx, "int8_bucketed", bp.int8_fold_geometry(n_pad, bp.BLOCK_BUCKET, B,
+                                                    w),
         out["ms"], out["nbytes"]))
     dyT = torch.from_numpy((rng.integers(0, 129, size=(vp, B)) / 16.0)
                            .astype(np.float32)).to(dev)
@@ -1427,18 +1457,18 @@ def plane_flops(rows: int, num_cols: int, b: int = B) -> float:
     return rows * (-(-num_cols // 128)) * 128 * 2 * b
 
 
-def score_bounds(nbytes: int, n_bits: int, rows: int, num_cols: int
-                 ) -> dict:
-    """The bounds of kernel #2 or #3 on ``rows`` rows of ``n_bits`` set
-    bits, in either form: the function's bound is the larger of its bytes
-    over the memory rate and its work, one f32 add a set bit and query,
-    over the f32 rate. ``tensor_bound_ms`` is the plane form's own work
-    (every bit plane below ``num_cols`` multiplied in bf16) and bounds no
-    form: most of its products multiply zeros."""
+def score_bounds(nbytes: int, n_bits: int, rows: int, num_cols: int,
+                 b: int = B) -> dict:
+    """The bounds of kernel #2, #3 or #4 on ``rows`` rows of ``n_bits``
+    set bits for ``b`` queries, in either form: the function's bound is
+    the larger of its bytes over the memory rate and its work, one f32 add
+    a set bit and query, over the f32 rate. ``tensor_bound_ms`` is the
+    plane form's own work (every bit plane below ``num_cols`` multiplied
+    in bf16) and bounds no form: most of its products multiply zeros."""
     byte_bound = nbytes / H100_BYTES_PER_S * 1e3
-    ops_bound = n_bits * B / H100_F32_FLOPS * 1e3
+    ops_bound = n_bits * b / H100_F32_FLOPS * 1e3
     return dict(bound_ms=max(byte_bound, ops_bound), byte_bound_ms=byte_bound,
-                tensor_bound_ms=plane_flops(rows, num_cols)
+                tensor_bound_ms=plane_flops(rows, num_cols, b)
                 / H100_BF16_FLOPS * 1e3,
                 bound_by="bytes" if byte_bound >= ops_bound else "operations")
 
@@ -4774,6 +4804,62 @@ def phase_ssd(torch, dev) -> list:
     torch.cuda.empty_cache()
     log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
     return entries
+
+
+def phase_int8(torch, bp, dev, ptx: dict) -> list:
+    """Phase 19: kernel #4 on one ``BLOCK_ROWS``-row block of Zipf rows
+    at bucket 16 for each of ``INT8_BATCHES``: bit-identical to the plain
+    version in one launch, one read of the words counted in the call
+    record, then timed (20 launches; the plain version once) beside its
+    bound. Returns one dict a batch for the kernels line."""
+    from vsearch_tpu_torch.utils.profiling import TRACER
+
+    t_phase = time.perf_counter()
+    v = 29523
+    cols, nnz = synth_bot_rows(torch, dev, BLOCK_ROWS, 19, v)
+    n_bits = int(nnz.sum())
+    blk = bp.pack_bits(cols, nnz, v)
+    del cols, nnz
+    n_pad, w = blk.shape
+    log(f"phase 19: kernel #4 on one {BLOCK_ROWS}-row block of Zipf rows "
+        f"({n_bits / BLOCK_ROWS:.1f} set bits a row), bucket "
+        f"{bp.BLOCK_BUCKET}")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = []
+    for b in INT8_BATCHES:
+        q = torch.randn((b, v), generator=gen, device=dev).abs()
+        q8T = bp.prepare_queries_int8(q, w * 32)
+        before = bp.LAUNCHES["int8_bucketed"]
+        with TRACER.call("phase19") as call:
+            keys = bp.int8_bucket_keys(blk, q8T, BLOCK_ROWS)
+            counts = dict(call.rec.counts)
+        torch.cuda.synchronize()
+        launched = bp.LAUNCHES["int8_bucketed"] - before
+        require(launched == 1, f"phase 19, B={b}: {launched} launches")
+        require(counts == {"int8_word_passes": 1},
+                f"phase 19, B={b}: call record counts {counts}")
+        require(torch.equal(keys, bp.int8_bucket_keys_plain(
+            blk, q8T, BLOCK_ROWS)), f"kernel #4 != plain at B={b}")
+        ms = time_ms(lambda: bp.int8_bucket_keys(blk, q8T, BLOCK_ROWS), 20)
+        plain_ms = time_ms(lambda: bp.int8_bucket_keys_plain(
+            blk, q8T, BLOCK_ROWS), 1)
+        nbytes = blk.numel() * 4 + q8T.numel() + keys.numel() * 4
+        bd = score_bounds(nbytes, n_bits, BLOCK_ROWS, v, b)
+        geom = bp.int8_fold_geometry(n_pad, bp.BLOCK_BUCKET, b, w)
+        log(f"  kernel #4, B={b}: bit-identical to plain, 1 launch, "
+            f"int8_word_passes 1; {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+            f"bound {bd['bound_ms']:.3f} ms by {bd['bound_by']}, "
+            f"{100 * bd['bound_ms'] / ms:.1f}% of it); {geom.passes} "
+            f"pass(es), {geom.lanes} lanes x {geom.groups} entry groups")
+        log("    " + geometry_line(ptx, "int8_bucketed", geom, ms, nbytes))
+        out.append({"b": b, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                    "launches": launched, "word_passes": 1})
+        del q, q8T, keys
+    del blk
+    torch.cuda.empty_cache()
+    log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def free_port() -> int:

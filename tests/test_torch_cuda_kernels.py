@@ -115,10 +115,15 @@ def fold_case(request, dev):
 
 
 @pytest.mark.parametrize("bucket", [8, 16, 128])
-@pytest.mark.parametrize("b", [1, 7, 32, 45])
+@pytest.mark.parametrize("b", [1, 7, 31, 32, 33, 45, 200, 224, 256, 600,
+                               1024, 2100])
 def test_fold_kernels_bit_identical(fold_case, b, bucket):
     """Kernels #3 (dyadic weights) and #4 (any weights) equal their plain
-    versions bit for bit."""
+    versions bit for bit, each in one launch. #4 sweeps every query inside
+    the warp, 4, 8 or 16 a lane: one pass up to 512 queries (1-4 list
+    entries a warp load), two at 600 and 1,024, where the row longer than
+    the decode list is decoded again for the second pass, and at 2,100
+    two tiles of queries along the grid."""
     words, n, v, rng = fold_case
     vp = words.shape[1] * 32
     dy = torch.from_numpy((rng.integers(0, 129, size=(vp, b)) / 16.0)

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import TRACER
 from . import cuda_build
 from .ell import ELLMatrix, widen_cols
 from .search import top_k
@@ -274,6 +275,69 @@ def fold_geometry(n_pad: int, bucket: int, b: int, num_words: int
     tiles = _query_tiles("fold_geometry", b, num_words)
     grid_x = (n_pad // ROW_BLOCK) * (kb // CTA_WARPS)
     return FoldGeometry(kb=kb, grid=(grid_x, tiles))
+
+
+INT8_LIST_CAP = 256  # offsets a warp's decode list holds (kListCap)
+INT8_TILE_QUERIES = 2048  # queries of one grid row of kernel #4 (kTileQ)
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8FoldGeometry:
+    """How kernel #4 launches: CTA x of ``grid[0]`` owns key slots of one
+    1024-row block as in ``FoldGeometry``; ``grid[1]`` tiles the queries
+    by 2,048, so up to 2,048 queries a warp reads and decodes each row of
+    its slot once (``word_passes``: reads of the block's words, one a grid
+    row). It sweeps the kept list in ``passes`` passes of up to ``32 *
+    lane_queries`` queries; in the first, lane ``g * lanes + c`` (``g <
+    groups``) sums queries ``lane_queries`` from ``c * lane_queries`` over
+    every ``groups``-th list entry. ``smem_bytes``: the CTA's decode lists,
+    and past one pass its best keys."""
+
+    kb: int
+    grid: Tuple[int, int]
+    lane_queries: int
+    passes: int
+    lanes: int
+    groups: int
+    smem_bytes: int
+    warps: int = CTA_WARPS
+
+    @property
+    def word_passes(self) -> int:
+        return self.grid[1]
+
+    @property
+    def total_warps(self) -> int:
+        return self.grid[0] * self.grid[1] * self.warps
+
+    def c_args(self) -> Tuple[int, int, int]:
+        """(kb, lane_q, grid_x), as the C entry point takes them (it tiles
+        the queries itself)."""
+        return self.kb, self.lane_queries, self.grid[0]
+
+
+def int8_fold_geometry(n_pad: int, bucket: int, b: int, num_words: int
+                       ) -> Int8FoldGeometry:
+    """The launch geometry of kernel #4 over ``n_pad`` rows of
+    ``num_words`` words folded by ``bucket`` for ``b`` queries: the
+    32-query tiles of ``fold_geometry`` become passes inside the warp. A
+    lane sums 4 queries at b_pad 32, 8 up to 384, else 16 (the fastest on
+    an H100 at 262,144 rows, PERF.md)."""
+    kb = _check_fold("int8_fold_geometry", n_pad, bucket)
+    b_pad = 32 * _query_tiles("int8_fold_geometry", b, num_words)
+    lane_q = 4 if b_pad <= 32 else 8 if b_pad <= 384 else 16
+    tile = min(b_pad, INT8_TILE_QUERIES)
+    lanes = min(tile, 32 * lane_q) // lane_q
+    groups = 1
+    while 2 * groups * lanes <= 32:
+        groups *= 2
+    passes = -(-tile // (32 * lane_q))
+    best = CTA_WARPS * passes * lane_q * 32 * 4 if passes > 1 else 0
+    return Int8FoldGeometry(
+        kb=kb, grid=((n_pad // ROW_BLOCK) * (kb // CTA_WARPS),
+                     -(-b_pad // INT8_TILE_QUERIES)),
+        lane_queries=lane_q, passes=passes, lanes=lanes, groups=groups,
+        smem_bytes=CTA_WARPS * INT8_LIST_CAP * 4 + best)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -577,14 +641,18 @@ def int8_bucket_keys(words: torch.Tensor, q8T: torch.Tensor, num_rows: int,
                      bucket: int = BLOCK_BUCKET) -> torch.Tensor:
     """Kernel #4 (``csrc/int8_bucketed.cu``) on CUDA tensors, the plain
     version on CPU tensors. words [N_pad, W] int32, q8T [VP, B] int8 ->
-    keys [N_pad / bucket, B] int32."""
+    keys [N_pad / bucket, B] int32. Each call counts its reads of the
+    block's words in the open call record (``int8_word_passes``: one up to
+    2,048 queries; the plain version reads them once)."""
     if _uses_plain("int8_bucket_keys", (words, torch.int32),
                    (q8T, torch.int8)):
+        TRACER.count("int8_word_passes", 1)
         return int8_bucket_keys_plain(words, q8T, num_rows, bucket)
     _check_queries("int8_bucket_keys", words, q8T)
     n_pad, w = words.shape
     b = q8T.shape[1]
-    geom = fold_geometry(n_pad, bucket, b, w)
+    geom = int8_fold_geometry(n_pad, bucket, b, w)
+    TRACER.count("int8_word_passes", geom.word_passes)
     qp = _pad_queries(q8T)
     _check_rows("int8_bucket_keys", words, qp)
     keys = torch.empty((n_pad // bucket, b), dtype=torch.int32,

@@ -1,6 +1,8 @@
 // Shared device code of the bit-packed scorers: the exact scorer (#2,
-// scores.cu) and the two fold kernels (#3 bucketed.cu, #4
-// int8_bucketed.cu).
+// scores.cu) and the fold kernel #3 (bucketed.cu). Kernel #4
+// (int8_bucketed.cu) calls only the decode (`decode_chunk`, `emit_bits`);
+// its int32 sums sweep every query of a call from one decode, so it has
+// its own sweep, and `QuadSum` (fold_slot's int8 form) has no kernel now.
 //
 // Packed layout (the JAX package's, vsearch_tpu/ops/bitpack.py): vocab id
 // v lives in word (v / 4096) * 128 + v % 128, bit (v % 4096) / 128, so a

@@ -52,8 +52,10 @@ _SIGNATURES = {
     # (words, qT, keys, num_rows, num_words, b, b_pad, kb, grid_x), grid_x
     # from bitpack.fold_geometry
     "bucketed": ("vs_bucketed_keys", [_P, _P, _P, _L] + [_I] * 5 + [_P]),
+    # (words, q8T, keys, num_rows, num_words, b, b_pad, kb, lane_q,
+    # grid_x), the last three from bitpack.int8_fold_geometry
     "int8_bucketed": ("vs_int8_bucketed_keys",
-                      [_P, _P, _P, _L] + [_I] * 5 + [_P]),
+                      [_P, _P, _P, _L] + [_I] * 6 + [_P]),
     # (words, qI, out, n_pad, num_words, nplanes, b, b_pad, grid_x),
     # nplanes and grid_x from bitpack.plane_geometry
     "scores_plane": ("vs_bitpack_scores_plane",
