@@ -341,7 +341,7 @@ SSD_TOL = 2.0 ** -8
 # carry ~200 queries, padded to 224 or 256; P6 runs 1,024)
 INT8_BATCHES = (32, 224, 256, 1024)
 
-# the launch counter (bitpack.LAUNCHES) of each kernel of the kernels line
+# the launch counter (cuda_build.LAUNCHES) of each kernel of the kernels line
 COUNTERS = {"pack_ell": "pack", "bitpack_scores": "scores",
             "bucketed_keys": "bucketed",
             "int8_bucketed_keys": "int8_bucketed",
@@ -683,7 +683,7 @@ def main() -> int:
         log(f"  ptxas {fn}: {r['registers']} registers, spill stores "
             f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, "
             f"static shared memory {r['smem']} B")
-    log(f"phase 2: built {len(cuda_build.SOURCES)} kernel libraries in "
+    log(f"phase 2: built {len(cuda_build.KERNELS)} kernel libraries in "
         f"{build_s:.2f} s (parallel nvcc, sm_90a)")
 
     if args.only_ssd or args.only_int8:
@@ -731,7 +731,7 @@ def main() -> int:
     def drive(label, corpus):
         """Build, pack and beta-search one index; counts zeroed before."""
         torch.cuda.synchronize()
-        bp.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         index = retriever.build_index(corpus, index_type="bag_of_token")
         torch.cuda.synchronize()
@@ -745,7 +745,7 @@ def main() -> int:
                                      rerank=True)
             results.append(res)
             stages.append(stage_times(retriever))
-        launches = dict(bp.LAUNCHES)
+        launches = dict(cuda_build.LAUNCHES)
         total = sum(sum(s.values()) for s in stages)
         log(f"phase {label}: {index.ell.shape[0]} rows "
             f"(selection {index._resolved_selection()}); build "
@@ -1017,7 +1017,7 @@ def main() -> int:
 
     # -- phase 12: training at BERT-base width, mining over the phase-4 index
     t_12 = time.perf_counter()
-    launch_12 = phase_train(torch, bp, dev, args, retriever, tok, words,
+    launch_12 = phase_train(torch, dev, args, retriever, tok, words,
                             texts, bot_ell)
     log(f"phase 12 took {time.perf_counter() - t_12:.1f} s")
     for e in kernels:  # the launches of phase 12's mining path
@@ -1043,7 +1043,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 15: the repo's own tools on the card -------------------------
-    launch_15 = phase_tools(torch, bp, dev, args, retriever, queries,
+    launch_15 = phase_tools(torch, dev, args, retriever, queries,
                             served_texts)
     for e in kernels:  # the launches of phase 15's paths in this process
         e["launches"] += launch_15[COUNTERS[e["name"]]]
@@ -1051,7 +1051,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 16: the repo's probes on the card -----------------------------
-    p16 = phase_probes(torch, bp, args)
+    p16 = phase_probes(torch, args)
     for e in kernels:  # the launches of the probes' paths
         e["launches"] += p16["launches"][COUNTERS[e["name"]]]
         e.update(p16["fields"].get(e["name"], {}))
@@ -1060,7 +1060,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 17: the port's bench on the card ------------------------------
-    launch_17 = phase_bench(torch, bp, args)
+    launch_17 = phase_bench(torch, args)
     for e in kernels:  # the launches of the bench's main path
         e["launches"] += launch_17[COUNTERS[e["name"]]]
 
@@ -1199,6 +1199,7 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
     kernel #2's at the block, and for phase 13 the query embeddings of the
     checked batches, their exact k-th scores and block-tier first stages
     with its milliseconds."""
+    from vsearch_tpu_torch.ops import cuda_build
     from vsearch_tpu_torch.index import BoTIndex
     from vsearch_tpu_torch.index.bot_build import build_bot_ell
     from vsearch_tpu_torch.ops.ell import ELLMatrix, widen_cols
@@ -1248,13 +1249,13 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
     n_blocks = -(-n // idx.stream_block_rows)
     qtexts = make_queries(rng, texts, B * args.batches)
     torch.cuda.synchronize()
-    bp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     results, stages = [], []
     for i in range(args.batches):
         results.append(retriever.retrieve(qtexts[i * B:(i + 1) * B], k=K,
                                           rerank=True, index=idx))
         stages.append(stage_times(retriever))
-    launch_block = dict(bp.LAUNCHES)
+    launch_block = dict(cuda_build.LAUNCHES)
     for i, st in enumerate(stages):
         log(f"  batch {i}: " + ", ".join(
             f"{k} {t * 1e3:.1f} ms" for k, t in st.items()))
@@ -1277,13 +1278,13 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
             block_rows=idx.stream_block_rows, selection="exact")
 
     torch.cuda.synchronize()
-    bp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     refs, sweep_ms = [], []
     for qe in q_embs:
         t0 = time.perf_counter()
         refs.append(exact_sweep(qe)[1].cpu().numpy())
         sweep_ms.append((time.perf_counter() - t0) * 1e3)
-    launch_sweep = dict(bp.LAUNCHES)
+    launch_sweep = dict(cuda_build.LAUNCHES)
     log("  exact blockwise sweep: " + ", ".join(
         f"batch {i} {t:.1f} ms" for i, t in enumerate(sweep_ms))
         + f"; launches {launch_sweep}")
@@ -1399,7 +1400,7 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
         f"{streamer.cols.dtype} in {time.perf_counter() - t0:.2f} s, "
         f"selection {streamer.selection}")
     torch.cuda.synchronize()
-    bp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     for i, qe in enumerate(q_embs):
         t0 = time.perf_counter()
         res = sidx.search(qe, k=K)
@@ -1410,7 +1411,7 @@ def phase_large(torch, bp, dev, args, retriever, tok, words, rng,
             f"{streamer.bytes_per_sweep / secs / 1e9:.2f} GB/s host->device"
             f"; recall vs exact {rec:.4f}")
         require(rec >= 0.99, f"stream tier recall {rec}")
-    launch_stream = dict(bp.LAUNCHES)
+    launch_stream = dict(cuda_build.LAUNCHES)
     log(f"  stream tier launches {launch_stream}")
     need = n_blocks * len(q_embs)
     require(launch_stream["pack"] >= need
@@ -1577,6 +1578,7 @@ def dense_alpha(torch, bp, dev, args, retriever, queries, ptx, dyT
     k (kernel #2 in the form ``row_form`` picks) on 4,096 and on 8,192 of
     the rows against the CPU, both forms timed. The rows are freed before
     it returns."""
+    from vsearch_tpu_torch.ops import cuda_build
     from vsearch_tpu_torch.index import SparseIndex
     from vsearch_tpu_torch.ops.ell import ELLMatrix, ell_matvec_chunked
     from vsearch_tpu_torch.ops.search import top_k
@@ -1598,13 +1600,13 @@ def dense_alpha(torch, bp, dev, args, retriever, queries, ptx, dyT
         f" GB); auto -> {'bitproxy' if idx._use_bitproxy() else 'exact'}, "
         f"C = {idx.rerank_budget} // {ell.nnz_pad} = {cand}")
     require(idx._use_bitproxy(), "'auto' did not route to the proxy")
-    bp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     results, stages = [], []
     for i in range(args.batches):
         results.append(retriever.retrieve(queries[i * B:(i + 1) * B], k=K,
                                           index=idx))
         stages.append(stage_times(retriever))
-    launches = dict(bp.LAUNCHES)
+    launches = dict(cuda_build.LAUNCHES)
     for i, st in enumerate(stages):
         log(f"  batch {i}{' (packs the support)' if i == 0 else ''}: "
             + ", ".join(f"{k} {t * 1e3:.1f} ms" for k, t in st.items()))
@@ -1680,10 +1682,10 @@ def dense_alpha(torch, bp, dev, args, retriever, queries, ptx, dyT
                 sentinel_padded=False))
             if d == dev:
                 torch.cuda.synchronize()
-                bp.reset_launch_counts()
+                cuda_build.reset_launch_counts()
             outs.append(sidx.search(q_emb, k=fb_k))
             if d == dev:
-                launch_fb = dict(bp.LAUNCHES)
+                launch_fb = dict(cuda_build.LAUNCHES)
                 fb_bits = sidx.bitproxy
         form = fb_bits.form
         other = "gather" if form == "plane" else "plane"
@@ -1763,6 +1765,7 @@ def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
     ids a row); the fallback to kernel #2 on 4,096 rows against the CPU.
     Returns the index (served in phase 10), the launch counts of the
     proxy path and of the fallback, and the kernels' extra fields."""
+    from vsearch_tpu_torch.ops import cuda_build
     from vsearch_tpu_torch.index import SparseIndex
     from vsearch_tpu_torch.ops import two_stage as ts
     from vsearch_tpu_torch.ops.ell import ELLMatrix, ell_matvec_chunked
@@ -1787,7 +1790,7 @@ def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
     require(idx._use_bitproxy(), "'auto' did not route to the proxy")
     require(idx.bitproxy is None, "set_ell kept a packed support")
     torch.cuda.synchronize()
-    bp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     results, stages = [], []
     for i in range(args.batches):
         # the first search packs the support itself, as a user's first
@@ -1795,7 +1798,7 @@ def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
         results.append(retriever.retrieve(queries[i * B:(i + 1) * B], k=K,
                                           index=idx))
         stages.append(stage_times(retriever))
-    launch_alpha = dict(bp.LAUNCHES)
+    launch_alpha = dict(cuda_build.LAUNCHES)
     for i, st in enumerate(stages):
         log(f"  batch {i}{' (packs the support)' if i == 0 else ''}: "
             + ", ".join(f"{k} {t * 1e3:.1f} ms" for k, t in st.items()))
@@ -1917,10 +1920,10 @@ def phase_alpha(torch, bp, dev, args, retriever, queries, ptx) -> dict:
             vals=small.vals.cpu(), num_cols=v, sentinel_padded=False))
         if d == dev:
             torch.cuda.synchronize()
-            bp.reset_launch_counts()
+            cuda_build.reset_launch_counts()
         outs.append(sidx.search(q_emb, k=600))
         if d == dev:
-            launch_fallback = dict(bp.LAUNCHES)
+            launch_fallback = dict(cuda_build.LAUNCHES)
             fb_bits = sidx.bitproxy
     require(launch_fallback["scores"] >= 1 and launch_fallback["pack"] >= 1
             and launch_fallback["bucketed"] == 0,
@@ -1973,7 +1976,7 @@ def http(url: str, payload=None):
         return json.loads(resp.read())
 
 
-def load_test(torch, bp, label: str, server, reqs, rerank: bool,
+def load_test(torch, label: str, server, reqs, rerank: bool,
               rtol: float) -> dict:
     """Serve ``server`` on a thread and send it ``reqs`` (lists of
     queries) from 16 concurrent clients, 4 requests each, ``k=100``, with
@@ -1981,6 +1984,7 @@ def load_test(torch, bp, label: str, server, reqs, rerank: bool,
     against a serial ``retrieve`` of its queries (``same_topk`` within
     ``rtol``), and the coalescer must have made fewer device calls than
     it got requests. Returns the launch counts of the run."""
+    from vsearch_tpu_torch.ops import cuda_build
     import threading
 
     url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -2006,7 +2010,7 @@ def load_test(torch, bp, label: str, server, reqs, rerank: bool,
             side["stats"] = http(url + "/stats")
 
         torch.cuda.synchronize()
-        bp.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         threads = [threading.Thread(target=client, args=(c,))
                    for c in range(16)] + [threading.Thread(target=extras)]
         t0 = time.perf_counter()
@@ -2015,7 +2019,7 @@ def load_test(torch, bp, label: str, server, reqs, rerank: bool,
         for t in threads:
             t.join()
         wall = time.perf_counter() - t0
-        launches = dict(bp.LAUNCHES)
+        launches = dict(cuda_build.LAUNCHES)
         stats = http(url + "/stats")
     finally:
         server.shutdown()
@@ -2072,6 +2076,7 @@ def phase_serving(torch, bp, dev, args, retriever, queries, texts,
     build and search CLIs over ``texts``; a beta server made by
     ``cli.serve`` and an alpha server over phase 9's index under
     concurrent load. Returns the launch counts of its paths."""
+    from vsearch_tpu_torch.ops import cuda_build
     import shutil
     import tempfile
 
@@ -2117,7 +2122,7 @@ def phase_serving(torch, bp, dev, args, retriever, queries, texts,
                          for q in queries[:nq])
         dv = ["--device", str(dev)]
         torch.cuda.synchronize()
-        bp.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         binary_token_index.main(["--text_file", corpus, "--save_file",
                                  f"{work}/bot.npz", "--tokenizer", ckpt,
@@ -2176,7 +2181,7 @@ def phase_serving(torch, bp, dev, args, retriever, queries, texts,
             aidx.ell.cols, aidx.ell.nnz, aidx.ell.num_cols)),
             "pack kernel != plain on the CLI-built alpha index")
         nnz_h = aidx.ell.nnz.cpu().numpy()
-        launches.append(dict(bp.LAUNCHES))
+        launches.append(dict(cuda_build.LAUNCHES))
         log(f"  CLI-built alpha index through the proxy: rows of "
             f"{nnz_h.mean():.1f} ids on average (max {nnz_h.max()}), "
             f"C = {aidx.rerank_budget // aidx.ell.nnz_pad}, kernel #3's "
@@ -2204,7 +2209,7 @@ def phase_serving(torch, bp, dev, args, retriever, queries, texts,
         log(f"  cli.serve.prepare_retriever (checkpoint, index, warm-up) "
             f"{time.perf_counter() - t0:.2f} s")
         launches.append(load_test(
-            torch, bp, "beta server (rerank)",
+            torch, "beta server (rerank)",
             serve(beta, host="127.0.0.1", port=0), reqs, True, SERVED_RTOL))
         require(launches[-1]["scores"] >= 1,
                 f"beta server skipped kernel #2: {launches[-1]}")
@@ -2215,7 +2220,7 @@ def phase_serving(torch, bp, dev, args, retriever, queries, texts,
         # -- 4. phase 9's alpha index served in memory -----------------------
         retriever.index = alpha_index
         launches.append(load_test(
-            torch, bp, f"alpha server ({alpha_index.ell.shape[0]} rows)",
+            torch, f"alpha server ({alpha_index.ell.shape[0]} rows)",
             serve(retriever, host="127.0.0.1", port=0), reqs, False,
             SERVED_RTOL))
         require(launches[-1]["bucketed"] >= 1,
@@ -2506,6 +2511,7 @@ def phase_crossmodal(torch, bp, dev, args, tok, words, ptx, work: str
                      ) -> dict:
     """Phase 11 (g): cross-modal retrieval at full width. Returns the
     launch counts of the bitproxy path and the kernels' extra fields."""
+    from vsearch_tpu_torch.ops import cuda_build
     from PIL import Image
 
     from vsearch_tpu_torch.index import SparseIndex
@@ -2631,12 +2637,12 @@ def phase_crossmodal(torch, bp, dev, args, tok, words, ptx, work: str
     idx.search_mode = "bitproxy"
     cand = idx.rerank_budget // ell.nnz_pad
     torch.cuda.synchronize()
-    bp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     proxy, stages = [], []
     for i in range(args.batches):
         proxy.append(xm.retrieve(queries[i * B:(i + 1) * B], k=K))
         stages.append(stage_times(xm))
-    launches = dict(bp.LAUNCHES)
+    launches = dict(cuda_build.LAUNCHES)
     # rows of 768 ids: kernel #3 runs in the plane form
     require(idx.bitproxy.form == "plane" and launches["pack"] == 1
             and launches["bucketed_plane"] >= args.batches
@@ -3009,7 +3015,7 @@ def determinism_probe(torch, module, fn, batch) -> None:
     state.tx.zero_grad()
 
 
-def phase_train(torch, bp, dev, args, retriever, tok, words, texts,
+def phase_train(torch, dev, args, retriever, tok, words, texts,
                 bot_ell) -> dict:
     """Phase 12: (a) tiny CPU <-> card training parity; (b) svdr_nq at
     BERT-base width through ``cli.train`` with a mid-epoch save, the
@@ -3017,6 +3023,7 @@ def phase_train(torch, bp, dev, args, retriever, tok, words, texts,
     profiled by kernel; (d) retrieved negatives mined over the phase-4
     bag-of-token index; (e) resume from (b)'s mid-epoch train state; (f)
     DPR steps of dpr_nq. Returns the launch counts of (d)'s mining path."""
+    from vsearch_tpu_torch.ops import cuda_build
     import shutil
     import tempfile
 
@@ -3154,7 +3161,7 @@ def phase_train(torch, bp, dev, args, retriever, tok, words, texts,
         # -- (d) retrieved negatives over the phase-4 index -------------------
         t0 = time.perf_counter()
         sync(torch, dev)
-        bp.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         index = BoTIndex(device=dev)
         index.set_ell(dataclasses.replace(bot_ell,
                                           cols=bot_ell.cols.to(dev),
@@ -3173,7 +3180,7 @@ def phase_train(torch, bp, dev, args, retriever, tok, words, texts,
         with recorded_steps(torch, dev, steps_d):
             RetrieverTrainer(vdr, cfg_d, [BiEncoderDataset(data)]).run_train()
         sync(torch, dev)
-        launches = dict(bp.LAUNCHES)
+        launches = dict(cuda_build.LAUNCHES)
         del vdr.retrieve_negatives
         ms_d = [m for m, _, _ in steps_d]
         log(f"phase 12 (d) retrieved negatives over the phase-4 index "
@@ -3300,6 +3307,7 @@ def phase_mesh(torch, bp, dev, args, retriever, tok, words, texts, queries,
     of the card, each against its one-device answer. Returns the launch
     counts of the sharded paths (each zeroed just before the sharded run
     and read just after; the one-device references run outside)."""
+    from vsearch_tpu_torch.ops import cuda_build
     import io
     import shutil
     import tempfile
@@ -3313,18 +3321,18 @@ def phase_mesh(torch, bp, dev, args, retriever, tok, words, texts, queries,
     from vsearch_tpu_torch.serve import serve
 
     mesh = make_mesh(devices=[dev] * MESH_SHARDS)
-    counts = {name: 0 for name in bp.LAUNCHES}
+    counts = {name: 0 for name in cuda_build.LAUNCHES}
 
     def sharded(fn):
         """Run ``fn`` with the launch counts zeroed before and added to
         ``counts`` after."""
         torch.cuda.synchronize()
-        bp.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         try:
             return fn()
         finally:
             torch.cuda.synchronize()
-            for name, c in bp.LAUNCHES.items():
+            for name, c in cuda_build.LAUNCHES.items():
                 counts[name] += c
 
     t_phase = time.perf_counter()
@@ -3932,7 +3940,7 @@ KEEP_BYTES = 1 << 28
 
 
 def call_counter(fname: str, a: dict) -> str:
-    """The ``bitpack.LAUNCHES`` counter that a call of wrapper ``fname``
+    """The ``cuda_build.LAUNCHES`` counter that a call of wrapper ``fname``
     with the arguments ``a`` (by name) adds to."""
     if fname == "plane_variant":
         return a["kernel"]
@@ -4327,7 +4335,7 @@ def tools_demo(torch, dev, args, work: str) -> None:
         log("    (cut by --demo-topics/--demo-epochs: top-1 not gated)")
 
 
-def phase_tools(torch, bp, dev, args, retriever, queries, texts) -> dict:
+def phase_tools(torch, dev, args, retriever, queries, texts) -> dict:
     """Phase 15: the repo's own tools on the card, through the port's
     entry points: (a) the quick start (``tools_quick_start``), (b) the
     wiki21m scripts over ``texts`` (``tools_scripts``), (c) the
@@ -4336,13 +4344,14 @@ def phase_tools(torch, bp, dev, args, retriever, queries, texts) -> dict:
     Every launch must have been recorded (``recorded_kernel_calls``), and
     each shape at which (a)-(c) called a kernel in this process is held
     against its plain version on the same inputs. Returns the counts."""
+    from vsearch_tpu_torch.ops import cuda_build
     import shutil
     import tempfile
 
     t_phase = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
     torch.cuda.synchronize()
-    bp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     where = {"part": "(a)"}
     try:
         with recorded_kernel_calls(where) as rec:
@@ -4352,7 +4361,7 @@ def phase_tools(torch, bp, dev, args, retriever, queries, texts) -> dict:
             where["part"] = "(c)"
             tools_demo(torch, dev, args, work)
             torch.cuda.synchronize()
-            launches = dict(bp.LAUNCHES)
+            launches = dict(cuda_build.LAUNCHES)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"  launches of phase 15 (this process): {launches}")
@@ -4423,7 +4432,7 @@ def hold_probes(r: dict) -> None:
 def phase_launch(torch, args) -> dict:
     """Phase 16 (b), outside the recorder (which wraps each kernel call
     and would time itself): ``probe_launch_cost``, the host time of one
-    kernel call through ``bitpack._launch`` against the uncached launch
+    kernel call through ``cuda_build.launch`` against the uncached launch
     path (``probe_launch_cost.legacy_launch``), for P1 and for #2 on
     4,096 rows; P1 against its plain
     expression in turns at [8, 128] and [65,536, 1,024], held bit for bit
@@ -4439,13 +4448,13 @@ def phase_launch(torch, args) -> dict:
     log(f"  host us a call (time.perf_counter, {r['calls']} calls in "
         f"turns; {threading.active_count()} threads in this process): "
         f"P1 wrapper {h['p1_wrapper']}, its plain expression "
-        f"{h['p1_plain']}; _launch {h['p1_launch']} against the "
+        f"{h['p1_plain']}; launch {h['p1_launch']} against the "
         f"uncached path {h['p1_legacy_launch']}; the bare ctypes "
         f"call {h['p1_ctypes']}; the uncached path's parts: device guard "
         f"{h['guard']}, Stream object {h['stream_object']}, "
         f"lookup and typing {h['lookup_and_type']}")
     log(f"  #2 on 4,096 rows of 64 ids, B=32: wrapper {h['s2_wrapper']}"
-        f" us, _launch {h['s2_launch']} against the uncached path's "
+        f" us, launch {h['s2_launch']} against the uncached path's "
         f"{h['s2_legacy_launch']}")
     for label, c in r["p1"].items():
         require(c["bit_identical"], f"P1 at {c['shape']} != plain: {c}")
@@ -4459,7 +4468,7 @@ def phase_launch(torch, args) -> dict:
     return r
 
 
-def phase_probes(torch, bp, args) -> dict:
+def phase_probes(torch, args) -> dict:
     """Phase 16: the port's probes (``vsearch_tpu_torch/scripts``), the
     counterparts of the repo's TPU probes, each ``main`` in this process
     (``PROBE_RUNS``, two timed repetitions each; the serve load starts its
@@ -4480,7 +4489,7 @@ def phase_probes(torch, bp, args) -> dict:
     if args.probe_out:
         os.makedirs(args.probe_out, exist_ok=True)
     r = {}
-    launches = dict.fromkeys(bp.LAUNCHES, 0)
+    launches = dict.fromkeys(cuda_build.LAUNCHES, 0)
     where = {}
     with recorded_kernel_calls(where) as rec:
         for key, name, argv in PROBE_RUNS:
@@ -4492,12 +4501,12 @@ def phase_probes(torch, bp, args) -> dict:
                 + ".json")])
             mod = importlib.import_module(f"vsearch_tpu_torch.scripts.{name}")
             torch.cuda.synchronize()
-            bp.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             r[key] = mod.main(argv + ["--iters", "2", "--seed",
                                         str(args.seed), "--device",
                                         DEVICE] + out)
             torch.cuda.synchronize()
-            for c, n in bp.LAUNCHES.items():
+            for c, n in cuda_build.LAUNCHES.items():
                 launches[c] += n
             t_hold = time.perf_counter()
             hold_recorded_calls(torch, DEVICE, rec, 16)
@@ -4509,7 +4518,10 @@ def phase_probes(torch, bp, args) -> dict:
     check_recorded_launches(16, rec, launches)
     log("  every launch was recorded: " + ", ".join(
         f"{c} {n}" for c, n in launches.items() if n))
-    require(all(launches[c] for c in bp.LAUNCHES if c != "scores_plane"),
+    # no probe runs #2's plane form or the granite trunk's chunk scan
+    # (phase 18 holds it)
+    require(all(launches[c] for c in cuda_build.LAUNCHES
+                if c not in ("scores_plane", "ssd_chunk")),
             f"phase 16's probes skipped a kernel: {launches}")
     hold_probes(r)
     log("  held: P1 layout A; every kernel call at each shape above "
@@ -4652,7 +4664,7 @@ def bench_resident_check(torch, args) -> None:
         f"{float(np.abs(card['scores'] - cpu['scores']).max())!r})")
 
 
-def phase_bench(torch, bp, args) -> dict:
+def phase_bench(torch, args) -> dict:
     """Phase 17: the port's bench (``vsearch_tpu_torch.bench``, the
     counterpart of ``bench.py``) on the card, inside the recorder: (a)
     ``bench_resident_check``, then ``bench.main`` at its defaults in this
@@ -4663,6 +4675,7 @@ def phase_bench(torch, bp, args) -> dict:
     bench, its four recalls reach ``BENCH_RECALL_MIN`` (alpha at C =
     1,536), its over-card index take the block tier, and every value be
     finite. Returns the bench's launches."""
+    from vsearch_tpu_torch.ops import cuda_build
     from vsearch_tpu_torch import bench
 
     t_phase = time.perf_counter()
@@ -4671,18 +4684,18 @@ def phase_bench(torch, bp, args) -> dict:
     where = {"part": "(a)"}
     with recorded_kernel_calls(where) as rec:
         torch.cuda.synchronize()
-        bp.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         bench_resident_check(torch, args)
         torch.cuda.synchronize()
-        launch_a = dict(bp.LAUNCHES)
+        launch_a = dict(cuda_build.LAUNCHES)
         where["part"] = "bench.main"
-        bp.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         out = captured(bench.main, ["--device", DEVICE, "--seed",
                                     str(args.seed)])
         torch.cuda.synchronize()
         bench_s = time.perf_counter() - t0
-        launches = dict(bp.LAUNCHES)
+        launches = dict(cuda_build.LAUNCHES)
     log(f"  bench.main took {bench_s:.1f} s; launches {launches}; (a)'s "
         f"{launch_a}")
     check_recorded_launches(17, rec, {c: n + launch_a[c]
@@ -4759,8 +4772,7 @@ def phase_ssd(torch, dev) -> list:
     ``SSD_LENGTHS``: every call recorded and held against the twin, then
     timed (the kernel by CUDA events over 20 launches, the twin over 2)
     beside its bound. Returns the kernels line's entries."""
-    from vsearch_tpu_torch.ops import bitpack as bp
-    from vsearch_tpu_torch.ops import ssd
+    from vsearch_tpu_torch.ops import cuda_build, ssd
 
     t_phase = time.perf_counter()
     log("phase 18: the granite trunk's Mamba-2 chunk scan at "
@@ -4768,7 +4780,7 @@ def phase_ssd(torch, dev) -> list:
         f"d_state {SSD_D_STATE}), {SSD_BATCH} sequences a call")
     gen = torch.Generator(device=dev).manual_seed(18)
     where = {"part": "phase 18"}
-    before = bp.LAUNCHES["ssd_chunk"]
+    before = cuda_build.LAUNCHES["ssd_chunk"]
     rows = []
     with recorded_kernel_calls(where) as rec:
         for length in SSD_LENGTHS:
@@ -4777,7 +4789,7 @@ def phase_ssd(torch, dev) -> list:
             ssd.ssd_chunk(*args, SSD_HEADS, SSD_D_HEAD, SSD_D_STATE)
             torch.cuda.synchronize()
             rows.append((length, args))
-    launched = bp.LAUNCHES["ssd_chunk"] - before
+    launched = cuda_build.LAUNCHES["ssd_chunk"] - before
     check_recorded_launches(18, rec, {"ssd_chunk": launched})
     require(launched == len(SSD_LENGTHS),
             f"phase 18: {launched} chunk-scan launches")
@@ -4812,6 +4824,7 @@ def phase_int8(torch, bp, dev, ptx: dict) -> list:
     version in one launch, one read of the words counted in the call
     record, then timed (20 launches; the plain version once) beside its
     bound. Returns one dict a batch for the kernels line."""
+    from vsearch_tpu_torch.ops import cuda_build
     from vsearch_tpu_torch.utils.profiling import TRACER
 
     t_phase = time.perf_counter()
@@ -4829,12 +4842,12 @@ def phase_int8(torch, bp, dev, ptx: dict) -> list:
     for b in INT8_BATCHES:
         q = torch.randn((b, v), generator=gen, device=dev).abs()
         q8T = bp.prepare_queries_int8(q, w * 32)
-        before = bp.LAUNCHES["int8_bucketed"]
+        before = cuda_build.LAUNCHES["int8_bucketed"]
         with TRACER.call("phase19") as call:
             keys = bp.int8_bucket_keys(blk, q8T, BLOCK_ROWS)
             counts = dict(call.rec.counts)
         torch.cuda.synchronize()
-        launched = bp.LAUNCHES["int8_bucketed"] - before
+        launched = cuda_build.LAUNCHES["int8_bucketed"] - before
         require(launched == 1, f"phase 19, B={b}: {launched} launches")
         require(counts == {"int8_word_passes": 1},
                 f"phase 19, B={b}: call record counts {counts}")

@@ -66,8 +66,8 @@ def test_wrappers_pass_the_geometry(monkeypatch, name, fn, n, bucket):
     arguments match the ctypes signature, and the geometry is
     ``fold_geometry``'s (#3) or ``int8_fold_geometry``'s (#4)."""
     got = {}
-    monkeypatch.setattr(bp, "_uses_plain", lambda *a: False)
-    monkeypatch.setattr(bp, "_launch",
+    monkeypatch.setattr(bp, "uses_plain", lambda *a: False)
+    monkeypatch.setattr(bp, "launch",
                         lambda n, out, *args: got.update(n=n, args=args)
                         or out)
     rows, b = -(-n // bp.ROW_BLOCK) * bp.ROW_BLOCK, 45
@@ -76,7 +76,7 @@ def test_wrappers_pass_the_geometry(monkeypatch, name, fn, n, bucket):
     keys = fn(words, torch.zeros((W * 32, b), dtype=dtype), n, bucket)
     assert keys.shape == (rows // bucket, b) and got["n"] == name
     args = got["args"]
-    assert len(args) + 1 == len(cuda_build._SIGNATURES[name][1])
+    assert len(args) + 1 == len(cuda_build.KERNELS[name].argtypes)
     geom = (bp.int8_fold_geometry if name == "int8_bucketed"
             else bp.fold_geometry)(rows, bucket, b, W)
     assert args[3:7] == (n, W, b, 64)

@@ -14,8 +14,10 @@ import torch
 
 from benchmark.reference import granite_vdr as ref
 from benchmark.reference.vdr import full_f32
+from vsearch_tpu_torch.models.bert import BertConfig
 from vsearch_tpu_torch.models.granite_hybrid import GraniteHybridConfig
-from vsearch_tpu_torch.models.vdr import VDREncoder, VDREncoderConfig
+from vsearch_tpu_torch.models.vdr import (TRUNKS, VDREncoder, VDREncoderConfig,
+                                          VDRModule)
 from vsearch_tpu_torch.ops import bitpack
 from vsearch_tpu_torch.ops.ssd import ssd_chunk, ssd_chunk_plain
 from vsearch_tpu_torch.retriever import Retriever, RetrieverConfig
@@ -132,12 +134,21 @@ def test_ssd_chunk_takes_the_plain_form_on_the_cpu():
 
 # -- the encoder against the reference ----------------------------------------
 def test_config_selects_the_trunk():
+    """A config dict's ``trunk`` names an entry of ``TRUNKS``, whose
+    config class the trunk's keys build and whose module lives under its
+    ``attr``; BERT by default, an unknown name refused."""
     bert = VDREncoderConfig.from_dict({"type": "vdr", "vocab_size": 500})
-    assert bert.trunk == "bert" and bert.granite is None
+    assert bert.trunk == "bert" and type(bert.bert) is BertConfig
     assert bert.out_dim == 500 - bert.shift_vocab_num
+    assert VDREncoderConfig(bert=BertConfig.tiny()).trunk == "bert"
     g = VDREncoderConfig.from_dict(_enc_dict())
     assert g.trunk == "granite_hybrid" and g.out_dim == VOCAB - SHIFT
-    assert g.granite.layer_types == ("mamba", "attention", "mamba")
+    assert type(g.bert) is TRUNKS["granite_hybrid"].config
+    assert g.bert.layer_types == ("mamba", "attention", "mamba")
+    for cfg in (BertConfig.tiny(), g.bert):
+        trunk = TRUNKS[VDREncoderConfig(bert=cfg).trunk]
+        module = VDRModule(VDREncoderConfig(bert=cfg))
+        assert isinstance(getattr(module, trunk.attr), trunk.module)
     with pytest.raises(ValueError, match="trunk"):
         VDREncoderConfig.from_dict({"type": "vdr", "trunk": "t5"})
 

@@ -157,18 +157,20 @@ def test_bench_refuses_without_cuda():
 
 
 def test_every_kernel_has_a_counter_and_a_plain_twin():
-    """Each source in ``cuda_build.SOURCES`` is launched by exactly one
-    wrapper in ``ops/bitpack.py`` or ``ops/probes.py`` (``_launch("name",
-    ...)``, or ``_plane_keys("name", ...)``, the launcher that kernel #3's
-    plane form shares with its timing variants; ``probes.plane_variant``
+    """Each kernel of ``cuda_build.KERNELS`` is launched by exactly one
+    wrapper in ``ops/bitpack.py``, ``ops/probes.py`` or ``ops/ssd.py``
+    (``launch("name", ...)``, ``cuda_build``'s one launch path, or
+    ``_plane_keys("name", ...)``, the launcher that kernel #3's plane
+    form shares with its timing variants; ``probes.plane_variant``
     launches each of ``probes.PLANE_VARIANTS``), has a counter in
     ``LAUNCHES``, and its wrapper ``f`` runs ``f_plain``, a function of
     the same module: a kernel cannot land without its twin."""
     from vsearch_tpu_torch.ops import bitpack, cuda_build, probes, ssd
 
-    launchers = ("_launch", "_plane_keys")
+    launchers = ("launch", "_plane_keys")
     launched = {}
     for mod in (bitpack, probes, ssd):
+        assert mod.launch is cuda_build.launch, mod.__name__
         with open(mod.__file__) as f:
             tree = ast.parse(f.read())
         for fn in tree.body:
@@ -192,8 +194,11 @@ def test_every_kernel_has_a_counter_and_a_plain_twin():
                     launched[k] = fn.name
                 assert f"{fn.name}_plain" in names, fn.name
                 assert callable(getattr(mod, f"{fn.name}_plain"))
-    assert set(launched) == set(cuda_build.SOURCES) == \
-        set(bitpack.LAUNCHES), launched
+    assert set(launched) == set(cuda_build.KERNELS) == \
+        set(cuda_build.LAUNCHES), launched
+    # the names the benchmark reads in ``bitpack``
+    assert bitpack.LAUNCHES is cuda_build.LAUNCHES
+    assert bitpack.reset_launch_counts is cuda_build.reset_launch_counts
 
 
 @pytest.fixture(scope="module")

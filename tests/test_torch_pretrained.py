@@ -15,6 +15,7 @@ from tests.helpers import make_tokenizer, tiny_bert_config
 from vsearch_tpu.retriever import Retriever as JRetriever
 from vsearch_tpu.retriever import RetrieverConfig as JConfig
 from vsearch_tpu_torch.models.convert import vdr_state_dict_from_flax
+from vsearch_tpu_torch.models.vdr import TRUNKS
 from vsearch_tpu_torch.retriever import Retriever, RetrieverConfig
 from vsearch_tpu_torch.tokenization.wordpiece import WordPieceTokenizer
 
@@ -29,23 +30,41 @@ def enc_dict(tok):
                         "max_position_embeddings")}}
 
 
-def port_retriever(shared, seed=4):
+def _granite():
+    from tests.test_torch_granite import WORDS, _enc_dict, _vocab
+    return _enc_dict(), _vocab(), [" ".join(WORDS[i::97][:12])
+                                   for i in range(3)]
+
+
+def _bert():
     tok = make_tokenizer()
-    enc = enc_dict(tok)
+    return enc_dict(tok), dict(tok.vocab), TEXTS
+
+
+# a tiny encoder dict, vocabulary and texts for each of ``TRUNKS``
+TINY = {"bert": _bert, "granite_hybrid": _granite}
+
+
+def port_retriever(shared, seed=4, trunk="bert"):
+    enc, vocab, _ = TINY[trunk]()
     return Retriever(RetrieverConfig(encoder_q=dict(enc), encoder_p=dict(enc),
                                      shared_encoder=shared),
-                     tokenizer=WordPieceTokenizer(dict(tok.vocab)),
+                     tokenizer=WordPieceTokenizer(vocab),
                      seed=seed, device="cpu")
 
 
-def embeddings(r):
-    return (r.encoder_q.embed(TEXTS, batch_size=4),
-            r.encoder_p.embed(TEXTS, batch_size=4))
+def embeddings(r, texts=TEXTS):
+    return (r.encoder_q.embed(texts, batch_size=4),
+            r.encoder_p.embed(texts, batch_size=4))
 
 
+@pytest.mark.parametrize("trunk", list(TRUNKS))
 @pytest.mark.parametrize("shared", [True, False])
-def test_round_trip_is_bit_identical(tmp_path, shared):
-    r = port_retriever(shared)
+def test_round_trip_is_bit_identical(tmp_path, shared, trunk):
+    """Over every trunk: what ``save_pretrained`` wrote,
+    ``from_pretrained`` reads back to the same weights."""
+    r = port_retriever(shared, trunk=trunk)
+    texts = TINY[trunk]()[2]
     r.save_pretrained(str(tmp_path))
     assert sorted(os.listdir(tmp_path)) == ["config.json",
                                             "pytorch_model.bin", "vocab.txt"]
@@ -57,7 +76,8 @@ def test_round_trip_is_bit_identical(tmp_path, shared):
     assert back.config.shared_encoder == shared
     assert (back.encoder_p is back.encoder_q) == shared
     assert back.encoder_q.tokenizer.vocab == r.encoder_q.tokenizer.vocab
-    for a, b in zip(embeddings(r), embeddings(back)):
+    assert back.encoder_q.config.trunk == trunk
+    for a, b in zip(embeddings(r, texts), embeddings(back, texts)):
         np.testing.assert_array_equal(b, a)
 
 

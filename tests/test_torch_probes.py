@@ -3,7 +3,7 @@
 against the JAX package's own functions for the same work (its Pallas
 kernels in interpret mode; the TPU probe scripts themselves claim the TPU
 at import and are not imported), P5's launch geometry and the shared
-launch path (``bitpack._launch`` over a fake library), each probe's
+launch path (``cuda_build.launch`` over a fake library), each probe's
 ``main`` end to end at a tiny size on the CPU with its JSON keys, and the
 kernels on the card (``cuda``, skipped here)."""
 import json
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from vsearch_tpu_torch.ops import bitpack as tb
-from vsearch_tpu_torch.ops import probes
+from vsearch_tpu_torch.ops import cuda_build, probes
 
 
 def jax_modules():
@@ -193,11 +193,9 @@ def test_keys_t_wrappers_pass_the_geometry(monkeypatch, kernel, fn):
     """What P5 and its variant hand their C entry points, without a card:
     the arguments match the ctypes signature, the geometry is
     ``keys_t_geometry``'s and the state is the device's."""
-    from vsearch_tpu_torch.ops import cuda_build
-
     got = {}
-    monkeypatch.setattr(probes, "_uses_plain", lambda *a: False)
-    monkeypatch.setattr(tb, "_launch", lambda n, out, *args:
+    monkeypatch.setattr(probes, "uses_plain", lambda *a: False)
+    monkeypatch.setattr(probes, "launch", lambda n, out, *args:
                         got.update(n=n, args=args) or out)
     monkeypatch.setattr(probes, "_KEYS_T_STATE", {})
     w, n_pad, b = 256, 3072, 45
@@ -206,7 +204,7 @@ def test_keys_t_wrappers_pass_the_geometry(monkeypatch, kernel, fn):
               3000, 4)
     assert keys.shape == (n_pad // 4, b) and got["n"] == kernel
     args = got["args"]
-    assert len(args) + 1 == len(cuda_build._SIGNATURES[kernel][1])
+    assert len(args) + 1 == len(cuda_build.KERNELS[kernel].argtypes)
     assert args[3] == probes._KEYS_T_STATE[None].data_ptr()
     assert args[4:10] == (3000, n_pad, w, b, 64, 4)
     assert args[10:] == probes.keys_t_geometry(n_pad, 4, b, w).c_args()
@@ -244,17 +242,15 @@ class _FakeLib:
 
 @pytest.fixture
 def fake_launch(monkeypatch):
-    """``bitpack._launch`` over a fake library of P1 on CPU tensors: the
+    """``cuda_build.launch`` over a fake library of P1 on CPU tensors: the
     current device and stream stubbed (-1 is a CPU tensor's index), and
-    each device guard that ``_launch`` enters recorded."""
-    from vsearch_tpu_torch.ops import cuda_build
-
+    each device guard that ``launch`` enters recorded."""
     lib = _FakeLib()
     monkeypatch.setattr(cuda_build, "_libs", {"bitcast_rows": lib})
     monkeypatch.setattr(cuda_build, "_fns", {})
     monkeypatch.setattr(cuda_build, "build_all",
                         lambda *a, **k: pytest.fail("built a library"))
-    monkeypatch.setattr(tb, "_raw_stream", lambda index: 1234 + index)
+    monkeypatch.setattr(cuda_build, "_raw_stream", lambda index: 1234 + index)
     guards = []
 
     class Guard:
@@ -276,14 +272,14 @@ def test_launch_resolves_a_kernel_once(monkeypatch, fake_launch):
     each call passes the current stream's raw handle, enters no device
     guard on the current device, and counts once."""
     lib, guards = fake_launch
-    monkeypatch.setattr(tb, "_current_device", lambda: -1)
+    monkeypatch.setattr(cuda_build, "_current_device", lambda: -1)
     out = torch.empty(4)
-    before = tb.LAUNCHES["bitcast_rows"]
+    before = cuda_build.LAUNCHES["bitcast_rows"]
     for i in range(50):
-        assert tb._launch("bitcast_rows", out, i, 2, 3, 4) is out
+        assert cuda_build.launch("bitcast_rows", out, i, 2, 3, 4) is out
     assert lib.lookups == 1 and lib.fn.typed == 1
     assert lib.fn.calls == [(i, 2, 3, 4, 1233) for i in range(50)]
-    assert tb.LAUNCHES["bitcast_rows"] == before + 50
+    assert cuda_build.LAUNCHES["bitcast_rows"] == before + 50
     assert guards == []
 
 
@@ -292,25 +288,25 @@ def test_launch_guards_another_device(monkeypatch, fake_launch):
     ``cuda:i``) is launched inside a guard of its own device, on its
     device's stream, and still counts once a call."""
     lib, guards = fake_launch
-    monkeypatch.setattr(tb, "_current_device", lambda: 3)
+    monkeypatch.setattr(cuda_build, "_current_device", lambda: 3)
     out = torch.empty(4)
-    before = tb.LAUNCHES["bitcast_rows"]
+    before = cuda_build.LAUNCHES["bitcast_rows"]
     for _ in range(3):
-        tb._launch("bitcast_rows", out, 1, 2, 3, 4)
+        cuda_build.launch("bitcast_rows", out, 1, 2, 3, 4)
     assert guards == [-1, -1, -1]
     assert lib.lookups == 1 and lib.fn.typed == 1
     assert [c[-1] for c in lib.fn.calls] == [1233] * 3
-    assert tb.LAUNCHES["bitcast_rows"] == before + 3
+    assert cuda_build.LAUNCHES["bitcast_rows"] == before + 3
 
 
 def test_launch_raises_on_a_failed_launch(monkeypatch, fake_launch):
     lib, _ = fake_launch
-    monkeypatch.setattr(tb, "_current_device", lambda: -1)
+    monkeypatch.setattr(cuda_build, "_current_device", lambda: -1)
     monkeypatch.setattr(_FakeFn, "__call__", lambda self, *a: 9)
-    before = tb.LAUNCHES["bitcast_rows"]
+    before = cuda_build.LAUNCHES["bitcast_rows"]
     with pytest.raises(RuntimeError, match="cudaError 9"):
-        tb._launch("bitcast_rows", torch.empty(1), 1, 2, 3, 4)
-    assert tb.LAUNCHES["bitcast_rows"] == before
+        cuda_build.launch("bitcast_rows", torch.empty(1), 1, 2, 3, 4)
+    assert cuda_build.LAUNCHES["bitcast_rows"] == before
 
 
 # -- each probe end to end, tiny, on the CPU ---------------------------------

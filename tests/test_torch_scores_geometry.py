@@ -59,8 +59,8 @@ def test_query_tiles_and_refusals():
 def captured(monkeypatch):
     """What a wrapper hands its C entry point, without a card."""
     got = {}
-    monkeypatch.setattr(bp, "_uses_plain", lambda *a: False)
-    monkeypatch.setattr(bp, "_launch",
+    monkeypatch.setattr(bp, "uses_plain", lambda *a: False)
+    monkeypatch.setattr(bp, "launch",
                         lambda n, out, *args: got.update(n=n, args=args)
                         or out)
     return got
@@ -77,7 +77,7 @@ def test_score_bits_passes_the_geometry(captured, rows, b):
     assert out.shape == (rows, b) and out.dtype == torch.float32
     assert captured["n"] == "scores"
     args = captured["args"]
-    assert len(args) + 1 == len(cuda_build._SIGNATURES["scores"][1])
+    assert len(args) + 1 == len(cuda_build.KERNELS["scores"].argtypes)
     geom = bp.score_geometry(rows, b, W)
     assert args[3:7] == (rows, W, b, -(-b // 32) * 32)
     assert args[7:] == geom.c_args() == (geom.grid[0],)

@@ -296,10 +296,10 @@ class BiEncoder:
         sd = _load_state_dict(path)
         model = cls(config, tokenizer=tokenizer, **kwargs)
         from .models import convert
+        from .models.vdr import TRUNKS
 
         readers = {
-            "vdr": lambda sub, c: convert.vdr_state_dict_from_hf(
-                sub, c.bert.hidden_size),
+            "vdr": lambda sub, c: TRUNKS[c.trunk].read_hf(sub, c.bert),
             "dpr": lambda sub, c: convert.convert_dpr_params(sub),
             "vdr_crossmodal_text":
                 lambda sub, c: convert.convert_crossmodal_text_params(

@@ -171,13 +171,20 @@ class BertEncoder(nn.Module):
 
 
 class BertModel(nn.Module):
-    """Returns the last hidden state [B, L, H] (no pooler)."""
+    """Returns the last hidden state [B, L, H] (no pooler). As a VDR trunk
+    (``models.vdr.TRUNKS``) its head's logits are unscaled."""
+
+    head_scale = 1.0
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.config = cfg
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = BertEncoder(cfg)
+
+    @property
+    def tied_embedding(self) -> torch.Tensor:
+        return self.embeddings.word_embeddings.weight
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         if token_type_ids is None:

@@ -68,11 +68,9 @@ def build_module(module_cls, config, init: Callable, seed: int,
 
 
 def compute_dtype(config) -> torch.dtype:
-    """The dtype an encoder computes in: its trunk's ``dtype`` (BERT's, or
-    a VDR encoder's granite trunk's; f32 for encoders without one, such as
-    the image encoder)."""
-    trunk = getattr(config, "trunk_config", getattr(config, "bert", None))
-    return getattr(trunk, "dtype", torch.float32)
+    """The dtype an encoder computes in: its trunk's (``config.bert``'s)
+    ``dtype``; f32 for encoders without one, such as the image encoder."""
+    return getattr(getattr(config, "bert", None), "dtype", torch.float32)
 
 
 def compute_context(module: nn.Module, dtype: torch.dtype):

@@ -231,18 +231,25 @@ class GraniteHybridLayer(nn.Module):
 
 class GraniteHybridModel(nn.Module):
     """token ids [B, L] -> last hidden states [B, L, H] (after the final
-    RMSNorm). ``embed_tokens`` is the tied vocabulary that VDR's head
-    projects onto."""
+    RMSNorm); token types and the mask are ignored (the trunk is causal,
+    padding on the right). As a VDR trunk (``models.vdr.TRUNKS``) the head
+    projects onto ``embed_tokens`` and divides its logits by
+    ``logits_scaling``, as Granite's LM head does."""
 
     def __init__(self, cfg: GraniteHybridConfig):
         super().__init__()
         self.cfg = cfg
+        self.head_scale = cfg.logits_scaling
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.layers = nn.ModuleList(GraniteHybridLayer(cfg, kind)
                                     for kind in cfg.layer_types)
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
-    def forward(self, input_ids):
+    @property
+    def tied_embedding(self) -> torch.Tensor:
+        return self.embed_tokens.weight
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         h = self.embed_tokens(input_ids) * self.cfg.embedding_multiplier
         for layer in self.layers:
             h = layer(h)

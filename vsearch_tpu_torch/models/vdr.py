@@ -1,22 +1,19 @@
 """VDR encoder: text -> sparse vector on the LM vocabulary space
 (counterpart of ``vsearch_tpu/models/vdr.py``).
 
-BERT last hidden states -> LayerNorm (eps 1e-5) -> projection onto the
+Trunk last hidden states -> LayerNorm (eps 1e-5) -> projection onto the
 vocab-shifted tied word embeddings -> masked max-pool over the sequence
 -> elu1p -> optional L2 norm, then top-k / bag-of-words masking. The
-trunk may instead be granite-4.0-h (``trunk="granite_hybrid"``,
-``models/granite_hybrid.py``), whose head is the same over its own tied
-embeddings, the projection divided by its ``logits_scaling`` as Granite's
-LM head divides its logits. As in
-the JAX package, padding positions are masked out of the pooling unless
-``compat_pad_pooling`` asks for the reference's pooling over them, and
-the max branch pools raw logits and applies elu1p once after the pool
-(elu1p is monotone).
+trunk is BERT or another entry of ``TRUNKS`` (a config dict's ``trunk``
+key). As in the JAX package, padding positions are masked out of the
+pooling unless ``compat_pad_pooling`` asks for the reference's pooling
+over them, and the max branch pools raw logits and applies elu1p once
+after the pool (elu1p is monotone).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -26,15 +23,38 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.activations import elu1p
 from ..ops.sparse import build_bow_mask, build_topk_mask
 from ..utils.profiling import TRACER
+from . import convert
 from .bert import BertConfig, BertModel, init_bert_weights
 from .encoder_base import TextEncoderBase, build_module
 from .granite_hybrid import (GraniteHybridConfig, GraniteHybridModel,
                              init_granite_weights)
 
-GRANITE = "granite_hybrid"
-
 # elements of one [B*L, chunk] f32 logits block in the chunked max-pool
 _POOL_BLOCK_ELEMS = 1 << 27
+
+
+class Trunk(NamedTuple):
+    """A trunk VDR's head can sit on. ``module(config)`` maps ``(input_ids,
+    token_type_ids, attention_mask)`` to hidden states [B, L, H] and has
+    ``tied_embedding`` (its word embeddings [V, H]) and ``head_scale``
+    (what the head divides its logits by)."""
+
+    config: type  # a dataclass, built from a config dict's matching keys
+    module: type
+    attr: str  # the VDRModule attribute it lives under: its key prefix
+    init: Callable  # init(VDRModule, generator)
+    read_hf: Callable  # read_hf(HF-layout state dict, config) -> the port's
+
+
+# the trunks by the name a config dict's ``trunk`` key gives (default BERT)
+TRUNKS: Dict[str, Trunk] = {
+    "bert": Trunk(BertConfig, BertModel, "bert_model", init_bert_weights,
+                  lambda sd, cfg: convert.vdr_state_dict_from_hf(
+                      sd, cfg.hidden_size)),
+    # granite-4.0-h: the port's names are HF's already
+    "granite_hybrid": Trunk(GraniteHybridConfig, GraniteHybridModel, "model",
+                            init_granite_weights, lambda sd, cfg: dict(sd)),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,21 +67,20 @@ class VDREncoderConfig:
     pooling: str = "max"  # 'max' | 'mean'
     pooling_topk: int = 0  # for 'mean': average of top-k sequence acts
     compat_pad_pooling: bool = False
-    bert: BertConfig = dataclasses.field(default_factory=BertConfig)
+    # the trunk's config: BERT's, or the config class of another entry of
+    # ``TRUNKS`` (the field keeps the first trunk's name)
+    bert: Any = dataclasses.field(default_factory=BertConfig)
     type: str = "vdr"
-    granite: Optional[GraniteHybridConfig] = None  # the trunk's, if granite
 
     @property
     def trunk(self) -> str:
-        return "bert" if self.granite is None else GRANITE
-
-    @property
-    def trunk_config(self):
-        return self.bert if self.granite is None else self.granite
+        """The name of the entry of ``TRUNKS`` whose config ``bert`` is."""
+        return next(name for name, t in TRUNKS.items()
+                    if isinstance(self.bert, t.config))
 
     @property
     def vocab_size(self) -> int:
-        return self.trunk_config.vocab_size
+        return self.bert.vocab_size
 
     @property
     def out_dim(self) -> int:
@@ -69,27 +88,21 @@ class VDREncoderConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "VDREncoderConfig":
-        own_keys = {f.name for f in dataclasses.fields(cls)} - {"bert",
-                                                                "granite"}
-        own = {k: v for k, v in d.items() if k in own_keys}
         trunk = d.get("trunk", "bert")
-        if trunk == GRANITE:
-            keys = {f.name for f in dataclasses.fields(GraniteHybridConfig)}
-            return cls(granite=GraniteHybridConfig(
-                **{k: v for k, v in d.items() if k in keys}), **own)
-        if trunk != "bert":
+        if trunk not in TRUNKS:
             raise ValueError(f"unknown VDR trunk {trunk!r}")
-        bert_keys = {f.name for f in dataclasses.fields(BertConfig)}
-        bert = BertConfig(**{k: v for k, v in d.items() if k in bert_keys})
-        return cls(bert=bert, **own)
+        trunk_cls = TRUNKS[trunk].config
+        trunk_keys = {f.name for f in dataclasses.fields(trunk_cls)}
+        own_keys = {f.name for f in dataclasses.fields(cls)} - {"bert"}
+        return cls(bert=trunk_cls(**{k: v for k, v in d.items()
+                                     if k in trunk_keys}),
+                   **{k: v for k, v in d.items() if k in own_keys})
 
 
 class VDRModule(nn.Module):
     """tokens -> [B, V - shift] f32 vocabulary embedding. Parameter names
-    follow the reference's torch VDR encoder (``bert_model.*`` + ``ln``);
-    a granite trunk is ``model.*`` (HF's ``GraniteMoeHybridForCausalLM``
-    layout, its LM head tied to ``model.embed_tokens``) + ``ln``, and
-    takes no token types or mask (it is causal, padding on the right).
+    are the trunk's under its ``Trunk.attr`` (the reference's torch VDR
+    encoder's ``bert_model.*`` for BERT) + the head's ``ln``.
 
     With ``tp_devices`` (``encoder_base.set_tp``; the mesh's tp line, this
     module's device first) the trunk runs once, here, and the head's
@@ -103,11 +116,10 @@ class VDRModule(nn.Module):
     def __init__(self, config: VDREncoderConfig):
         super().__init__()
         self.config = config
-        if config.granite is not None:
-            self.model = GraniteHybridModel(config.granite)
-        else:
-            self.bert_model = BertModel(config.bert)
-        self.ln = nn.LayerNorm(config.trunk_config.hidden_size, eps=1e-5)
+        trunk = TRUNKS[config.trunk]
+        self.trunk_attr = trunk.attr
+        setattr(self, trunk.attr, trunk.module(config.bert))
+        self.ln = nn.LayerNorm(config.bert.hidden_size, eps=1e-5)
         # checkpoint the max-pool's vocab chunks under autograd (remat)
         self.remat = False
         self.tp_devices = None  # the head's vocabulary split (set_tp)
@@ -116,17 +128,14 @@ class VDRModule(nn.Module):
         cfg = self.config
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        if cfg.granite is not None:
-            # dividing the head's input divides its logits (exactly, for
-            # granite's power-of-two scaling)
-            h = self.ln(self.model(input_ids)) / cfg.granite.logits_scaling
-            proj = self.model.embed_tokens.weight[cfg.shift_vocab_num:]
-        else:
-            h = self.ln(self.bert_model(input_ids, token_type_ids,
-                                        attention_mask))
-            # tied head: the shifted word embeddings [V', H]
-            proj = self.bert_model.embeddings.word_embeddings.weight[
-                cfg.shift_vocab_num:]
+        trunk = getattr(self, self.trunk_attr)
+        h = self.ln(trunk(input_ids, token_type_ids, attention_mask))
+        if trunk.head_scale != 1.0:
+            # dividing the head's input divides its logits (exactly, for a
+            # power-of-two scale)
+            h = h / trunk.head_scale
+        # tied head: the shifted word embeddings [V', H]
+        proj = trunk.tied_embedding[cfg.shift_vocab_num:]
         if cfg.compat_pad_pooling:
             # pool every position up to the batch's longest row, as the
             # reference's padding=True batches do
@@ -230,10 +239,9 @@ class VDREncoder(TextEncoderBase):
             from ..tokenization import get_tokenizer
             tokenizer = get_tokenizer(config.model_id)
         super().__init__(config, tokenizer, device)
-        init = (init_granite_weights if config.granite is not None
-                else init_bert_weights)
-        self.module = build_module(VDRModule, config, init, seed,
-                                   self.device, config.trunk_config.dtype,
+        self.module = build_module(VDRModule, config,
+                                   TRUNKS[config.trunk].init, seed,
+                                   self.device, config.bert.dtype,
                                    state_dict)
 
     # -- per-batch pipelines -------------------------------------------------

@@ -29,13 +29,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import TRACER
-from . import cuda_build
+# the benchmark reads ``LAUNCHES`` and ``reset_launch_counts`` here too
+from .cuda_build import LAUNCHES, reset_launch_counts  # noqa: F401
+from .cuda_build import launch, uses_plain
 from .ell import ELLMatrix, widen_cols
 from .search import top_k
 from .two_stage import exact_rerank
@@ -48,25 +50,6 @@ BUCKET = 8  # rows folded into one candidate key by kernel #3
 BLOCK_BUCKET = 2 * BUCKET  # the fold of the block tier's kernels
 INT8_KEY_SHIFT = 10  # low bits of an int8 key hold the local row id
 INT32_MIN = -(2 ** 31)
-
-# launches of each CUDA kernel since the last reset: a run can show that
-# its main path went through the kernels
-LAUNCHES: Dict[str, int] = {"pack": 0, "scores": 0, "bucketed": 0,
-                            "int8_bucketed": 0, "scores_plane": 0,
-                            "bucketed_plane": 0,
-                            # the probe kernels (ops/probes.py)
-                            "bitcast_rows": 0, "pack_t": 0, "bucketed_t": 0,
-                            "bucketed_t_decode_only": 0,
-                            "plane_operand_only": 0,
-                            "plane_fragments_only": 0,
-                            # the granite trunk's chunk scan (ops/ssd.py)
-                            "ssd_chunk": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -97,58 +80,6 @@ class BitMatrix:
         return self.padded_bits // TILE_BITS
 
 
-def _uses_plain(name: str, *inputs: Tuple[torch.Tensor, torch.dtype]
-                ) -> bool:
-    """True when the inputs lie on the CPU (the plain version runs).
-    For CUDA inputs, check what the kernel takes and return False; raise
-    for any other device, a device mismatch, a dtype or a layout the
-    kernel does not take."""
-    first = inputs[0][0]
-    if not first.is_cuda:
-        if first.device.type == "cpu":
-            return True
-        raise ValueError(f"{name}: unsupported device {first.device}")
-    dev = first.get_device()
-    for t, dtype in inputs:
-        if t.get_device() != dev:
-            raise ValueError(f"{name}: inputs on {t.device} and "
-                             f"{first.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-    return False
-
-
-# The current device's index, and the current stream of a device index as
-# a raw handle without building a ``torch.cuda.Stream`` (where this build
-# of PyTorch offers them; both read the same state as the public calls)
-_current_device = (getattr(torch._C, "_cuda_getDevice", None)
-                   or torch.cuda.current_device)
-_raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
-               or (lambda index: torch.cuda.current_stream(index)
-                   .cuda_stream))
-
-
-def _launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
-    """Launch kernel ``name`` on the current stream of ``out``'s device,
-    raise if the launch failed, and count it. A device guard is entered
-    only when ``out`` lies on another device than the current one (the
-    mesh paths' shards)."""
-    fn = cuda_build.kernel_fn(name)
-    dev = out.get_device()
-    if dev == _current_device():
-        err = fn(*args, _raw_stream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, _raw_stream(dev))
-    if err:
-        raise RuntimeError(f"CUDA kernel '{name}' failed to launch: "
-                           f"cudaError {err}")
-    LAUNCHES[name] += 1
-    return out
-
-
 # -- kernel #1: pack ---------------------------------------------------------
 def pack_bits_plain(cols: torch.Tensor, nnz: torch.Tensor, num_cols: int
                     ) -> torch.Tensor:
@@ -176,7 +107,7 @@ def pack_bits(cols: torch.Tensor, nnz: torch.Tensor, num_cols: int
               ) -> torch.Tensor:
     """Kernel #1 (``csrc/pack.cu``) on CUDA tensors, the plain version on
     CPU tensors."""
-    if _uses_plain("pack_bits", (cols, torch.int32), (nnz, torch.int32)):
+    if uses_plain("pack_bits", (cols, torch.int32), (nnz, torch.int32)):
         return pack_bits_plain(cols, nnz, num_cols)
     n, nnz_pad = cols.shape
     if nnz.shape != (n,):
@@ -185,7 +116,7 @@ def pack_bits(cols: torch.Tensor, nnz: torch.Tensor, num_cols: int
     n_pad = _round_up(max(n, 1), ROW_BLOCK)
     out = torch.empty((n_pad, num_words), dtype=torch.int32,
                       device=cols.device)
-    return _launch("pack", out, cols.data_ptr(), nnz.data_ptr(),
+    return launch("pack", out, cols.data_ptr(), nnz.data_ptr(),
                    out.data_ptr(), n, n_pad, nnz_pad, num_cols, num_words)
 
 
@@ -515,7 +446,7 @@ def score_bits(words: torch.Tensor, qT: torch.Tensor,
     (``csrc/scores_plane.cu``), which skips the bit planes at or past
     ``num_cols`` (qT must weigh those columns zero; None: all)."""
     _check_form("score_bits", _form)
-    if _uses_plain("score_bits", (words, torch.int32),
+    if uses_plain("score_bits", (words, torch.int32),
                    (qT, torch.bfloat16)):
         return score_bits_plain(words, qT)
     _check_queries("score_bits", words, qT)
@@ -528,11 +459,11 @@ def score_bits(words: torch.Tensor, qT: torch.Tensor,
         g = plane_geometry(n_pad, b, w, w * 32 if num_cols is None
                            else num_cols)
         qi = _plane_operand(qp, g.nplanes)
-        return _launch("scores_plane", out, words.data_ptr(), qi.data_ptr(),
+        return launch("scores_plane", out, words.data_ptr(), qi.data_ptr(),
                        out.data_ptr(), n_pad, w, g.nplanes, b, qp.shape[1],
                        g.grid[0])
     geom = score_geometry(n_pad, b, w)
-    return _launch("scores", out, words.data_ptr(), qp.data_ptr(),
+    return launch("scores", out, words.data_ptr(), qp.data_ptr(),
                    out.data_ptr(), n_pad, w, b, qp.shape[1], *geom.c_args())
 
 
@@ -575,7 +506,7 @@ def _plane_keys(kernel: str, words: torch.Tensor, qT: torch.Tensor,
             if g.split == 1 else
             torch.full(shape, INT32_MIN, dtype=torch.int32,
                        device=words.device))
-    return _launch(kernel, keys, words.data_ptr(), qi.data_ptr(),
+    return launch(kernel, keys, words.data_ptr(), qi.data_ptr(),
                    keys.data_ptr(), num_rows, n_pad, w, g.nplanes, b,
                    qp.shape[1], ROW_BLOCK // bucket, g.split, g.grid[0])
 
@@ -588,7 +519,7 @@ def bucket_keys(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
     (``csrc/bucketed.cu``) or the plane form (``csrc/bucketed_plane.cu``,
     ``num_cols`` as for ``score_bits``)."""
     _check_form("bucket_keys", _form)
-    if _uses_plain("bucket_keys", (words, torch.int32),
+    if uses_plain("bucket_keys", (words, torch.int32),
                    (qT, torch.bfloat16)):
         return bucket_keys_plain(words, qT, num_rows, bucket)
     if _form == "plane":
@@ -602,7 +533,7 @@ def bucket_keys(words: torch.Tensor, qT: torch.Tensor, num_rows: int,
     geom = fold_geometry(n_pad, bucket, b, w)
     keys = torch.empty((n_pad // bucket, b), dtype=torch.int32,
                        device=words.device)
-    return _launch("bucketed", keys, words.data_ptr(), qp.data_ptr(),
+    return launch("bucketed", keys, words.data_ptr(), qp.data_ptr(),
                    keys.data_ptr(), num_rows, w, b, qp.shape[1],
                    *geom.c_args())
 
@@ -644,7 +575,7 @@ def int8_bucket_keys(words: torch.Tensor, q8T: torch.Tensor, num_rows: int,
     keys [N_pad / bucket, B] int32. Each call counts its reads of the
     block's words in the open call record (``int8_word_passes``: one up to
     2,048 queries; the plain version reads them once)."""
-    if _uses_plain("int8_bucket_keys", (words, torch.int32),
+    if uses_plain("int8_bucket_keys", (words, torch.int32),
                    (q8T, torch.int8)):
         TRACER.count("int8_word_passes", 1)
         return int8_bucket_keys_plain(words, q8T, num_rows, bucket)
@@ -657,7 +588,7 @@ def int8_bucket_keys(words: torch.Tensor, q8T: torch.Tensor, num_rows: int,
     _check_rows("int8_bucket_keys", words, qp)
     keys = torch.empty((n_pad // bucket, b), dtype=torch.int32,
                        device=words.device)
-    return _launch("int8_bucketed", keys, words.data_ptr(), qp.data_ptr(),
+    return launch("int8_bucketed", keys, words.data_ptr(), qp.data_ptr(),
                    keys.data_ptr(), num_rows, w, b, qp.shape[1],
                    *geom.c_args())
 

@@ -1,32 +1,30 @@
 // Shared device code of the bit-packed scorers: the exact scorer (#2,
-// scores.cu) and the fold kernel #3 (bucketed.cu). Kernel #4
-// (int8_bucketed.cu) calls only the decode (`decode_chunk`, `emit_bits`);
-// its int32 sums sweep every query of a call from one decode, so it has
-// its own sweep, and `QuadSum` (fold_slot's int8 form) has no kernel now.
+// scores.cu) and the fold kernel #3 (bucketed.cu), both over the bf16
+// query operand. Kernel #4 (int8_bucketed.cu) calls only the decode
+// (`decode_chunk`, `emit_bits`); its int32 sums sweep every query of a
+// call from one decode, so it has its own sweep.
 //
 // Packed layout (the JAX package's, vsearch_tpu/ops/bitpack.py): vocab id
 // v lives in word (v / 4096) * 128 + v % 128, bit (v % 4096) / 128, so a
 // row of V' = 29,523 columns is 1,024 uint32 words (4 KB).
 //
-// All three score a row by decode, then gather (`score_rows`). The warp
+// #2 and #3 score a row by decode, then gather (`score_rows`). The warp
 // loads the row into registers, 2 KB at a time (one 16-byte streaming load
 // a lane per 512-byte chunk), turns its set bits into a list of
 // query-operand offsets in shared memory, then sums the operand over the
-// list with kGather loads in flight a lane, each load serving several
-// queries (QuadSum for int8, PairSum for bf16, below). The list keeps word
-// order, then bit order within a word, the order of the first port's
-// bit-by-bit walk: f32 sums are bit-identical to it, and to each other
-// across #2 and #3; int32 sums are exact. A row with more set bits than
-// the list holds is summed in chunks of the list, in the same order. (The
-// walk with one gather in flight a warp, and a ring of rows staged in
-// shared memory with cp.async, were measured slower on the H100: PERF.md.)
+// list with kGather loads in flight a lane, each load serving two queries
+// (`PairSum`, below). The list keeps word order, then bit order within a
+// word, the order of the first port's bit-by-bit walk: f32 sums are
+// bit-identical to it, and to each other across #2 and #3. A row with
+// more set bits than the list holds is summed in chunks of the list, in
+// the same order. (The walk with one gather in flight a warp, and a ring
+// of rows staged in shared memory with cp.async, were measured slower on
+// the H100: PERF.md.)
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace vs {
 
@@ -39,63 +37,6 @@ constexpr int kListCap = 256;     // offsets a warp's list holds
 constexpr int kChunkWords = 128;  // one 512-byte chunk: 4 words a lane
 constexpr int kHeldChunks = 4;    // chunks a warp holds at once
 constexpr int kGather = 8;        // operand loads in flight a lane
-
-// Row sums with four queries a lane, for the int8 operand: lane (g, s) =
-// (lane / 8, lane % 8) loads the 4 bytes of queries 4s .. 4s + 3 of list
-// entries i = g mod 4, so one load serves four queries and a warp keeps
-// 4 x kGather entries in flight. Integer sums make the order free; fold()
-// adds the four groups' partial sums.
-struct QuadSum {
-  static constexpr int kRows = 1;
-  const char* base;
-  int acc[4] = {0, 0, 0, 0};
-  int best[4] = {INT32_MIN, INT32_MIN, INT32_MIN, INT32_MIN};
-
-  __device__ explicit QuadSum(const int8_t* qtile)
-      : base(reinterpret_cast<const char*>(qtile) + 4 * (threadIdx.x & 7)) {}
-
-  // acc += the weights over list[0, n[0]) (integer sums: any order)
-  __device__ __forceinline__ void add(const int* __restrict__ list, int,
-                                      const int (&nn)[1]) {
-    const int n = nn[0];
-    __syncwarp();
-    const int g = (threadIdx.x >> 3) & 3;
-    for (int i = 0; i < n; i += 4 * kGather) {
-      unsigned x[kGather];
-#pragma unroll
-      for (int u = 0; u < kGather; ++u) {
-        const int j = i + 4 * u + g;
-        x[u] = j < n ? __ldg(reinterpret_cast<const unsigned*>(base + list[j]))
-                     : 0u;
-      }
-#pragma unroll
-      for (int u = 0; u < kGather; ++u)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)  // acc[k] += signed byte k of x[u]
-          acc[k] = __dp4a((int)x[u], 1 << (8 * k), acc[k]);
-    }
-    __syncwarp();
-  }
-  template <typename Splice>
-  __device__ __forceinline__ void fold(int, int local, int) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      int s = acc[k];
-      s += __shfl_xor_sync(kFullMask, s, 8);
-      s += __shfl_xor_sync(kFullMask, s, 16);
-      best[k] = max(best[k], Splice{}(s, local));
-      acc[k] = 0;
-    }
-  }
-  __device__ __forceinline__ void store(int32_t* __restrict__ out, int q0,
-                                        int b) {
-    const int g = (threadIdx.x >> 3) & 3;
-    const int v = g == 0 ? best[0] : g == 1 ? best[1] : g == 2 ? best[2]
-                                                               : best[3];
-    const int q = q0 + 4 * (threadIdx.x & 7) + g;
-    if (q < b) out[q] = v;
-  }
-};
 
 // Row sums with two queries a lane and two rows at once, for the bf16
 // operand: lane (h, s) = (lane / 16, lane % 16) loads the 4 bytes of
@@ -262,10 +203,10 @@ __device__ __forceinline__ void score_rows(Sum& sum,
 }
 
 // ---------------------------------------------------------------------------
-// The slot fold of kernels #3 and #4: score rows, splice each score with
-// its local row id into an int32 key, and max-fold the keys of each
-// 1024-row block to kb = 1024 / bucket slots (local rows l and l' share
-// slot l % kb, the grouping of JAX's halving fold).
+// The slot fold of kernel #3: score rows, splice each score with its
+// local row id into an int32 key, and max-fold the keys of each 1024-row
+// block to kb = 1024 / bucket slots (local rows l and l' share slot
+// l % kb, the grouping of JAX's halving fold).
 //
 // Geometry (grid_x computed by the Python wrapper, `fold_geometry`): a CTA
 // of kWarps warps owns kWarps consecutive slots of one 1024-row block, one
@@ -274,9 +215,9 @@ __device__ __forceinline__ void score_rows(Sum& sum,
 // kRows at a time, keeping the running max in registers: no atomics, and
 // as many warps as slots (16,384 for a 262,144-row block at bucket 16) to
 // fill the card. `Splice` turns (score, local row) into the key.
-template <typename T, typename Splice>
+template <typename Splice>
 __device__ __forceinline__ void fold_slot(
-    const uint32_t* __restrict__ words, const T* __restrict__ qT,
+    const uint32_t* __restrict__ words, const __nv_bfloat16* __restrict__ qT,
     int32_t* __restrict__ keys, long long num_rows, int num_words, int b,
     int b_pad, int kb) {
   __shared__ __align__(16) int lists[kWarps][kListCap];
@@ -292,10 +233,8 @@ __device__ __forceinline__ void fold_slot(
           : 0;
   int32_t* out = keys + (block * kb + slot) * b;
 
-  using Sum =
-      typename std::conditional<sizeof(T) == 1, QuadSum, PairSum>::type;
-  constexpr int kR = Sum::kRows;
-  Sum sum(qT + blockIdx.y * 32);
+  constexpr int kR = PairSum::kRows;
+  PairSum sum(qT + blockIdx.y * 32);
   for (int j0 = 0; j0 < nrows; j0 += kR) {
     const int rows = min(kR, nrows - j0);
     score_rows(sum, words, first_row + (int64_t)j0 * kb, kb, rows, num_words,
@@ -316,15 +255,15 @@ __device__ __forceinline__ void fold_slot(
         ctas_per_sm, kernel, vs::kWarps * 32, 0);                \
   }
 
-// The fold kernel of one splice (unmangled, so the ptxas report and the
-// profiler name it), its C entry point and its occupancy entry.
-#define VS_FOLD_ENTRY(entry, kernel, T, Splice)                              \
+// Kernel #3's fold kernel of one splice (unmangled, so the ptxas report
+// and the profiler name it), its C entry point and its occupancy entry.
+#define VS_FOLD_ENTRY(entry, kernel, Splice)                                 \
   extern "C" __global__ void __launch_bounds__(vs::kWarps * 32) kernel(      \
-      const uint32_t* __restrict__ words, const T* __restrict__ qT,          \
-      int32_t* __restrict__ keys, long long num_rows, int num_words, int b,  \
-      int b_pad, int kb) {                                                   \
-    vs::fold_slot<T, Splice>(words, qT, keys, num_rows, num_words, b, b_pad, \
-                             kb);                                            \
+      const uint32_t* __restrict__ words,                                    \
+      const __nv_bfloat16* __restrict__ qT, int32_t* __restrict__ keys,      \
+      long long num_rows, int num_words, int b, int b_pad, int kb) {         \
+    vs::fold_slot<Splice>(words, qT, keys, num_rows, num_words, b, b_pad,    \
+                          kb);                                               \
   }                                                                          \
   extern "C" int entry(const void* words, const void* qT, void* keys,        \
                        long long num_rows, int num_words, int b, int b_pad,  \
@@ -332,8 +271,8 @@ __device__ __forceinline__ void fold_slot(
     if (grid_x <= 0 || b <= 0) return 0;                                     \
     kernel<<<dim3((unsigned)grid_x, (unsigned)(b_pad / 32)),                 \
              vs::kWarps * 32, 0, (cudaStream_t)stream>>>(                    \
-        (const uint32_t*)words, (const T*)qT, (int32_t*)keys, num_rows,      \
-        num_words, b, b_pad, kb);                                            \
+        (const uint32_t*)words, (const __nv_bfloat16*)qT, (int32_t*)keys,    \
+        num_rows, num_words, b, b_pad, kb);                                  \
     return (int)cudaGetLastError();                                          \
   }                                                                          \
   VS_OCCUPANCY_ENTRY(entry, kernel)

@@ -14,9 +14,9 @@
 // 1024-row block (256 CTAs of 8 warps at 262,144 rows, a quarter of the
 // card's warp slots), and a bit walk with one dependent L2 gather in
 // flight per warp, streaming no row bytes while it walked. The design now
-// (bitrow.cuh, `fold_slot`, shared with kernel #4): one warp per key slot,
-// so 16,384-32,768 warps at 262,144 rows; each row is decoded into a list
-// of query-operand offsets in shared memory, then summed with 8
+// (bitrow.cuh, `fold_slot`): one warp per key slot, so 16,384-32,768
+// warps at 262,144 rows; each row is decoded into a list of
+// query-operand offsets in shared memory, then summed with 8
 // independent gathers in flight a lane, a warp summing two rows at once
 // and each 4-byte load carrying two queries' weights (`PairSum`). Each
 // query still sums its row's set bits in word order, then bit order, the
@@ -42,4 +42,4 @@ struct F32Splice {
 // 0, 16-byte aligned), qT [VP, b_pad] bf16 (b_pad % 32 == 0), keys
 // [n_pad / bucket, b] int32 with kb = 1024 / bucket. grid_x comes from
 // the Python wrapper's `fold_geometry`. Returns a cudaError_t.
-VS_FOLD_ENTRY(vs_bucketed_keys, bucketed_kernel, __nv_bfloat16, F32Splice)
+VS_FOLD_ENTRY(vs_bucketed_keys, bucketed_kernel, F32Splice)

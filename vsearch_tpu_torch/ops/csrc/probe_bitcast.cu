@@ -11,7 +11,7 @@
 //
 // Bound: bytes, the words read once and the halves written once: 0.160 ms
 // at [65,536, 1,024] (512 MiB at 3.35 TB/s); at the probe's [8, 128] (8
-// KB) the launch, and the host's part of a call (bitpack._launch) with it.
+// KB) the launch, and the host's part of a call (cuda_build.launch) with it.
 //
 // Design. A thread takes 4 words of a row: one 16-byte streaming load
 // (__ldcs), and its 4 low halves and 4 high halves each one 8-byte store,

@@ -1,11 +1,18 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
-Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
-library with a plain C interface, loaded with ``ctypes``: no PyTorch
-headers, so a build takes seconds. All sources build at once, one
-``nvcc`` process each, into the git-ignored ``vsearch_tpu_torch/_build/``
-directory; a library is rebuilt when its source or a header is newer.
-Nothing here runs at import time: the CPU tests import every module.
+``KERNELS`` is the one table of them: each kernel's source, C entry point
+and ctypes argument types. Each ``csrc/*.cu`` source compiles with
+``nvcc`` into its own shared library with a plain C interface, loaded
+with ``ctypes``: no PyTorch headers, so a build takes seconds. All sources
+build at once, one ``nvcc`` process each, into the git-ignored
+``vsearch_tpu_torch/_build/`` directory; a library is rebuilt when its
+source or a header is newer. Nothing here runs at import time: the CPU
+tests import every module.
+
+Each kernel wrapper (``ops/bitpack.py``, ``ops/probes.py``, ``ops/ssd.py``)
+runs its plain PyTorch twin when ``uses_plain`` says its inputs lie on the
+CPU, else ``launch``es the kernel, which counts the launch in
+``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -16,25 +23,79 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, List, NamedTuple, Tuple
+
+import torch
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          "_build")
-SOURCES = {"pack": "pack.cu", "scores": "scores.cu",
-           "bucketed": "bucketed.cu", "int8_bucketed": "int8_bucketed.cu",
-           "scores_plane": "scores_plane.cu",
-           "bucketed_plane": "bucketed_plane.cu",
-           # the probe kernels (ops/probes.py; vsearch_tpu_torch/scripts)
-           "bitcast_rows": "probe_bitcast.cu", "pack_t": "pack_t.cu",
-           "bucketed_t": "bucketed_t.cu",
-           "bucketed_t_decode_only": "bucketed_t_decode_only.cu",
-           "plane_operand_only": "plane_operand_only.cu",
-           "plane_fragments_only": "plane_fragments_only.cu",
-           # the granite trunk's Mamba-2 chunk scan (ops/ssd.py)
-           "ssd_chunk": "ssd_chunk.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+class Kernel(NamedTuple):
+    source: str  # under csrc/
+    symbol: str  # the C entry point; its last argument is the stream
+    argtypes: List[type]
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNELS: Dict[str, Kernel] = {
+    "pack": Kernel("pack.cu", "vs_pack_ell",
+                   [_P, _P, _P, _L, _L, _I, _I, _I, _P]),
+    # (words, qT, out, n_pad, num_words, b, b_pad, grid_x), grid_x from
+    # bitpack.score_geometry
+    "scores": Kernel("scores.cu", "vs_bitpack_scores",
+                     [_P, _P, _P, _L] + [_I] * 4 + [_P]),
+    # (words, qT, keys, num_rows, num_words, b, b_pad, kb, grid_x), grid_x
+    # from bitpack.fold_geometry
+    "bucketed": Kernel("bucketed.cu", "vs_bucketed_keys",
+                       [_P, _P, _P, _L] + [_I] * 5 + [_P]),
+    # (words, q8T, keys, num_rows, num_words, b, b_pad, kb, lane_q,
+    # grid_x), the last three from bitpack.int8_fold_geometry
+    "int8_bucketed": Kernel("int8_bucketed.cu", "vs_int8_bucketed_keys",
+                            [_P, _P, _P, _L] + [_I] * 6 + [_P]),
+    # (words, qI, out, n_pad, num_words, nplanes, b, b_pad, grid_x),
+    # nplanes and grid_x from bitpack.plane_geometry
+    "scores_plane": Kernel("scores_plane.cu", "vs_bitpack_scores_plane",
+                           [_P, _P, _P, _L] + [_I] * 5 + [_P]),
+    # (words, qI, keys, num_rows, n_pad, num_words, nplanes, b, b_pad, kb,
+    # split, grid_x)
+    "bucketed_plane": Kernel("bucketed_plane.cu", "vs_bucketed_keys_plane",
+                             [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
+    # the probe kernels (ops/probes.py; vsearch_tpu_torch/scripts)
+    # (x, out, s, l)
+    "bitcast_rows": Kernel("probe_bitcast.cu", "vs_bitcast_rows",
+                           [_P, _P, _L, _I, _P]),
+    # (cols, nnz, words_t, n, n_pad, nnz_pad, v, num_words)
+    "pack_t": Kernel("pack_t.cu", "vs_pack_ell_t",
+                     [_P, _P, _P, _L, _L, _I, _I, _I, _P]),
+    # (words_t, qT, keys, state, num_rows, n_pad, num_words, b, b_pad,
+    # bucket, cap, grid_x, smem), the last three from
+    # probes.keys_t_geometry
+    "bucketed_t": Kernel("bucketed_t.cu", "vs_bucketed_keys_t",
+                         [_P, _P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
+    "bucketed_t_decode_only": Kernel(
+        "bucketed_t_decode_only.cu", "vs_bucketed_keys_t_decode_only",
+        [_P, _P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
+    # the arguments of "bucketed_plane"
+    "plane_operand_only": Kernel("plane_operand_only.cu",
+                                 "vs_plane_operand_only",
+                                 [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
+    "plane_fragments_only": Kernel("plane_fragments_only.cu",
+                                   "vs_plane_fragments_only",
+                                   [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
+    # the granite trunk's Mamba-2 chunk scan (ops/ssd.py): (proj, stride,
+    # x_off, dt_off, conv_w, conv_b, dt_bias, A_log, D, out, batch, len,
+    # heads)
+    "ssd_chunk": Kernel("ssd_chunk.cu", "vs_ssd_chunk",
+                        [_P, _L, _I, _I] + [_P] * 6 + [_I] * 3 + [_P]),
+}
+
+# launches of each kernel since the last reset: a run can show that its
+# main path went through the kernels
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _LOCK = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -42,49 +103,6 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, object] = {}
 # wall seconds and compiler output of the last build
 last_build: Dict[str, object] = {}
-
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "pack": ("vs_pack_ell", [_P, _P, _P, _L, _L, _I, _I, _I, _P]),
-    # (words, qT, out, n_pad, num_words, b, b_pad, grid_x), grid_x from
-    # bitpack.score_geometry
-    "scores": ("vs_bitpack_scores", [_P, _P, _P, _L] + [_I] * 4 + [_P]),
-    # (words, qT, keys, num_rows, num_words, b, b_pad, kb, grid_x), grid_x
-    # from bitpack.fold_geometry
-    "bucketed": ("vs_bucketed_keys", [_P, _P, _P, _L] + [_I] * 5 + [_P]),
-    # (words, q8T, keys, num_rows, num_words, b, b_pad, kb, lane_q,
-    # grid_x), the last three from bitpack.int8_fold_geometry
-    "int8_bucketed": ("vs_int8_bucketed_keys",
-                      [_P, _P, _P, _L] + [_I] * 6 + [_P]),
-    # (words, qI, out, n_pad, num_words, nplanes, b, b_pad, grid_x),
-    # nplanes and grid_x from bitpack.plane_geometry
-    "scores_plane": ("vs_bitpack_scores_plane",
-                     [_P, _P, _P, _L] + [_I] * 5 + [_P]),
-    # (words, qI, keys, num_rows, n_pad, num_words, nplanes, b, b_pad, kb,
-    # split, grid_x)
-    "bucketed_plane": ("vs_bucketed_keys_plane",
-                       [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
-    # (x, out, s, l)
-    "bitcast_rows": ("vs_bitcast_rows", [_P, _P, _L, _I, _P]),
-    # (cols, nnz, words_t, n, n_pad, nnz_pad, v, num_words)
-    "pack_t": ("vs_pack_ell_t", [_P, _P, _P, _L, _L, _I, _I, _I, _P]),
-    # (words_t, qT, keys, state, num_rows, n_pad, num_words, b, b_pad,
-    # bucket, cap, grid_x, smem), the last three from
-    # probes.keys_t_geometry
-    "bucketed_t": ("vs_bucketed_keys_t", [_P, _P, _P, _P, _L, _L]
-                   + [_I] * 7 + [_P]),
-    "bucketed_t_decode_only": ("vs_bucketed_keys_t_decode_only",
-                               [_P, _P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
-    # the arguments of "bucketed_plane"
-    "plane_operand_only": ("vs_plane_operand_only",
-                           [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
-    "plane_fragments_only": ("vs_plane_fragments_only",
-                             [_P, _P, _P, _L, _L] + [_I] * 7 + [_P]),
-    # (proj, stride, x_off, dt_off, conv_w, conv_b, dt_bias, A_log, D, out,
-    # batch, len, heads)
-    "ssd_chunk": ("vs_ssd_chunk", [_P, _L, _I, _I] + [_P] * 6
-                  + [_I] * 3 + [_P]),
-}
 
 
 def nvcc_path() -> str:
@@ -105,7 +123,7 @@ def _stale(name: str) -> bool:
     lib = _lib_path(name)
     if not os.path.exists(lib):
         return True
-    deps = [os.path.join(_CSRC, SOURCES[name])] + glob.glob(
+    deps = [os.path.join(_CSRC, KERNELS[name].source)] + glob.glob(
         os.path.join(_CSRC, "*.cuh"))
     return os.path.getmtime(lib) < max(os.path.getmtime(d) for d in deps)
 
@@ -116,7 +134,7 @@ def build_all(verbose: bool = False, force: bool = False) -> float:
     register and shared-memory report lands in ``last_build``). Returns
     the wall seconds of the build (0.0 when nothing was stale)."""
     with _LOCK:
-        names = [n for n in SOURCES if force or _stale(n)]
+        names = [n for n in KERNELS if force or _stale(n)]
         if not names:
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -127,7 +145,7 @@ def build_all(verbose: bool = False, force: bool = False) -> float:
         for n in names:
             tmp = _lib_path(n) + f".tmp{os.getpid()}"
             cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", _CSRC, "-o", tmp,
-                   os.path.join(_CSRC, SOURCES[n])]
+                   os.path.join(_CSRC, KERNELS[n].source)]
             procs[n] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -158,9 +176,8 @@ def kernel_fn(name: str):
             build_all()
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
-        sym, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
+        fn = getattr(lib, KERNELS[name].symbol)
+        fn.argtypes = KERNELS[name].argtypes
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -172,7 +189,7 @@ def occupancy(name: str) -> int:
     current device holds at once, as the CUDA runtime works them out from
     the kernel's registers and shared memory."""
     kernel_fn(name)  # builds and loads the library
-    fn = getattr(_libs[name], _SIGNATURES[name][0] + "_occupancy")
+    fn = getattr(_libs[name], KERNELS[name].symbol + "_occupancy")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     ctas = ctypes.c_int(0)
@@ -180,3 +197,60 @@ def occupancy(name: str) -> int:
     if err:
         raise RuntimeError(f"occupancy of '{name}': cudaError {err}")
     return ctas.value
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def uses_plain(name: str, *inputs: Tuple[torch.Tensor, torch.dtype]
+               ) -> bool:
+    """True when the inputs lie on the CPU (the plain version runs).
+    For CUDA inputs, check what the kernel takes and return False; raise
+    for any other device, a device mismatch, a dtype or a layout the
+    kernel does not take."""
+    first = inputs[0][0]
+    if not first.is_cuda:
+        if first.device.type == "cpu":
+            return True
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    dev = first.get_device()
+    for t, dtype in inputs:
+        if t.get_device() != dev:
+            raise ValueError(f"{name}: inputs on {t.device} and "
+                             f"{first.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return False
+
+
+# The current device's index, and the current stream of a device index as
+# a raw handle without building a ``torch.cuda.Stream`` (where this build
+# of PyTorch offers them; both read the same state as the public calls)
+_current_device = (getattr(torch._C, "_cuda_getDevice", None)
+                   or torch.cuda.current_device)
+_raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
+               or (lambda index: torch.cuda.current_stream(index)
+                   .cuda_stream))
+
+
+def launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
+    """Launch kernel ``name`` on the current stream of ``out``'s device,
+    raise if the launch failed, and count it. A device guard is entered
+    only when ``out`` lies on another device than the current one (the
+    mesh paths' shards)."""
+    fn = kernel_fn(name)
+    dev = out.get_device()
+    if dev == _current_device():
+        err = fn(*args, _raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, _raw_stream(dev))
+    if err:
+        raise RuntimeError(f"CUDA kernel '{name}' failed to launch: "
+                           f"cudaError {err}")
+    LAUNCHES[name] += 1
+    return out

@@ -24,9 +24,9 @@ them.
   used (nor are those of P5's timing-only variant).
 
 As in ``ops.bitpack``, each wrapper launches its kernel on CUDA tensors
-(counted in ``bitpack.LAUNCHES``) and runs its plain PyTorch twin
-(``*_plain``) on CPU tensors; the timing variants' twin is the function
-they time, kernel #3's plain version (P5's for P5's variant).
+(``cuda_build.launch``) and runs its plain PyTorch twin (``*_plain``) on
+CPU tensors; the timing variants' twin is the function they time, kernel
+#3's plain version (P5's for P5's variant).
 """
 from __future__ import annotations
 
@@ -37,8 +37,9 @@ import torch
 
 from . import bitpack
 from .bitpack import (BUCKET, ROW_BLOCK, TILE_BITS, _check_queries,
-                      _pad_queries, _round_up, _uses_plain,
-                      bucket_keys_plain, pack_bits_plain)
+                      _pad_queries, _round_up, bucket_keys_plain,
+                      pack_bits_plain)
+from .cuda_build import launch, uses_plain
 
 # rows of one P2 CTA, which its shared memory holds whole
 PACK_T_ROWS = 16
@@ -57,11 +58,11 @@ def bitcast_rows_plain(x: torch.Tensor) -> torch.Tensor:
 
 def bitcast_rows(x: torch.Tensor) -> torch.Tensor:
     """P1 on CUDA tensors, the plain version on CPU tensors."""
-    if _uses_plain("bitcast_rows", (x, torch.int32)):
+    if uses_plain("bitcast_rows", (x, torch.int32)):
         return bitcast_rows_plain(x)
     s, l = x.shape
     out = torch.empty((2 * s, l), dtype=torch.bfloat16, device=x.device)
-    return bitpack._launch("bitcast_rows", out, x.data_ptr(), out.data_ptr(),
+    return launch("bitcast_rows", out, x.data_ptr(), out.data_ptr(),
                            s, l)
 
 
@@ -78,7 +79,7 @@ def pack_bits_t(cols: torch.Tensor, nnz: torch.Tensor, num_cols: int
     """P2 on CUDA tensors, the plain version on CPU tensors: ELL cols [n,
     nnz_pad] int32 (distinct ids a row), nnz [n] int32 -> words_T [VP/32,
     N_pad] int32, equal to ``pack_bits(cols, nnz, num_cols).T``."""
-    if _uses_plain("pack_bits_t", (cols, torch.int32), (nnz, torch.int32)):
+    if uses_plain("pack_bits_t", (cols, torch.int32), (nnz, torch.int32)):
         return pack_bits_t_plain(cols, nnz, num_cols)
     n, nnz_pad = cols.shape
     if nnz.shape != (n,):
@@ -91,7 +92,7 @@ def pack_bits_t(cols: torch.Tensor, nnz: torch.Tensor, num_cols: int
     n_pad = _round_up(max(n, 1), ROW_BLOCK)
     out = torch.empty((num_words, n_pad), dtype=torch.int32,
                       device=cols.device)
-    return bitpack._launch("pack_t", out, cols.data_ptr(), nnz.data_ptr(),
+    return launch("pack_t", out, cols.data_ptr(), nnz.data_ptr(),
                            out.data_ptr(), n, n_pad, nnz_pad, num_cols,
                            num_words)
 
@@ -205,12 +206,12 @@ def bucket_keys_t(words_t: torch.Tensor, qT: torch.Tensor, num_rows: int,
     """P5 on CUDA tensors, the plain version on CPU tensors: words_T
     [VP/32, N_pad] int32, qT [VP, B] bf16 -> keys [N_pad / bucket, B]
     int32, kernel #3's keys of the same rows (``bucket`` 1, 2, 4 or 8)."""
-    if _uses_plain("bucket_keys_t", (words_t, torch.int32),
+    if uses_plain("bucket_keys_t", (words_t, torch.int32),
                    (qT, torch.bfloat16)):
         return bucket_keys_t_plain(words_t, qT, num_rows, bucket)
     keys, args = _keys_t_args("bucket_keys_t", words_t, qT, num_rows,
                               bucket)
-    return bitpack._launch("bucketed_t", keys, *args)
+    return launch("bucketed_t", keys, *args)
 
 
 def bucket_keys_t_decode_only_plain(words_t: torch.Tensor,
@@ -227,13 +228,13 @@ def bucket_keys_t_decode_only(words_t: torch.Tensor, qT: torch.Tensor,
     and decodes the rows as P5 does and stores keys made from the lists'
     counts. Its keys are not the function's. The plain version on CPU
     tensors."""
-    if _uses_plain("bucket_keys_t_decode_only", (words_t, torch.int32),
+    if uses_plain("bucket_keys_t_decode_only", (words_t, torch.int32),
                    (qT, torch.bfloat16)):
         return bucket_keys_t_decode_only_plain(words_t, qT, num_rows,
                                                bucket)
     keys, args = _keys_t_args("bucket_keys_t_decode_only", words_t, qT,
                               num_rows, bucket)
-    return bitpack._launch("bucketed_t_decode_only", keys, *args)
+    return launch("bucketed_t_decode_only", keys, *args)
 
 
 # -- the plane form's timing variants (TIMING ONLY) ---------------------------
@@ -258,7 +259,7 @@ def plane_variant(kernel: str, words: torch.Tensor, qT: torch.Tensor,
     if kernel not in PLANE_VARIANTS:
         raise ValueError(f"plane_variant: {kernel!r} is not one of "
                          f"{PLANE_VARIANTS}")
-    if _uses_plain(kernel, (words, torch.int32), (qT, torch.bfloat16)):
+    if uses_plain(kernel, (words, torch.int32), (qT, torch.bfloat16)):
         return plane_variant_plain(words, qT, num_rows, bucket)
     return bitpack._plane_keys(kernel, words, qT, num_rows, bucket,
                                num_cols)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .bitpack import _launch
+from .cuda_build import launch
 
 # the widths the kernel is written for (granite-4.0-h's); heads come in
 # groups of HEADS_PER_CTA
@@ -111,8 +111,7 @@ def ssd_chunk(proj: torch.Tensor, conv_w: torch.Tensor,
     inner = heads * d_head
     out = torch.empty((b, length, inner), dtype=proj.dtype,
                       device=proj.device)
-    # counted in ``bitpack.LAUNCHES["ssd_chunk"]``
-    return _launch("ssd_chunk", out, proj.data_ptr(), proj.shape[2], inner,
+    return launch("ssd_chunk", out, proj.data_ptr(), proj.shape[2], inner,
                    inner + inner + 2 * d_state, conv_w.data_ptr(),
                    conv_b.data_ptr(), dt_bias.data_ptr(), a_log.data_ptr(),
                    d.data_ptr(), out.data_ptr(), b, length, heads)

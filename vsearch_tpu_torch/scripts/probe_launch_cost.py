@@ -4,7 +4,7 @@ expression (the port's own probe; the TPU repo has no counterpart).
     python -m vsearch_tpu_torch.scripts.probe_launch_cost [--device cpu]
 
 A kernel call of the port runs its wrapper (checks, the output's
-allocation), then ``ops.bitpack._launch``, the one launch path of every
+allocation), then ``ops.cuda_build.launch``, the one launch path of every
 kernel, then the ctypes call of the kernel's C entry point. This probe
 times each of those by the host clock (``time.perf_counter`` over
 ``--calls`` calls, in batches of ``BATCH`` issued without a synchronise
@@ -49,15 +49,15 @@ CARD_ONLY = ("p1_launch", "p1_legacy_launch", "p1_ctypes", "guard",
 def legacy_lookup(name: str):
     """The C function of kernel ``name`` looked up and typed, as the
     uncached ``cuda_build.kernel_fn`` did on every call."""
-    sym, argtypes = cuda_build._SIGNATURES[name]
-    fn = getattr(cuda_build._libs[name], sym)
-    fn.argtypes = argtypes
+    kernel = cuda_build.KERNELS[name]
+    fn = getattr(cuda_build._libs[name], kernel.symbol)
+    fn.argtypes = kernel.argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
 def legacy_launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
-    """The uncached ``bitpack._launch``, replayed for timing: a device
+    """The uncached ``cuda_build.launch``, replayed for timing: a device
     guard, the C function looked up and typed, a ``Stream`` object, then
     the call. It counts nothing (the wrappers' counters are the
     port's)."""
@@ -126,7 +126,7 @@ def main(argv=None) -> dict:
         fn = cuda_build.kernel_fn("bitcast_rows")
         stream = torch.cuda.current_stream().cuda_stream
         fns.update({
-            "p1_launch": lambda: bitpack._launch("bitcast_rows", y, *p1),
+            "p1_launch": lambda: cuda_build.launch("bitcast_rows", y, *p1),
             "p1_legacy_launch": lambda: legacy_launch("bitcast_rows", y,
                                                       *p1),
             "p1_ctypes": lambda: fn(*p1, stream),
@@ -152,7 +152,7 @@ def main(argv=None) -> dict:
         a2 = (w2.data_ptr(), qT.data_ptr(), s2.data_ptr(), w2.shape[0],
               w2.shape[1], S2_B, qT.shape[1], *g.c_args())
         fns.update({
-            "s2_launch": lambda: bitpack._launch("scores", s2, *a2),
+            "s2_launch": lambda: cuda_build.launch("scores", s2, *a2),
             "s2_legacy_launch": lambda: legacy_launch("scores", s2, *a2)})
     launch.update(host_us(fns, dev, args.calls))
     for name in CARD_ONLY:  # launched only on the card
